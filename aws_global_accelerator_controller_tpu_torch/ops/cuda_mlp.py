@@ -1,0 +1,134 @@
+"""Kernel K3: the fused traffic MLP, and its plain versions.
+
+``forward_cuda`` is the port of the JAX package's
+``ops/pallas_mlp.py::forward_pallas`` (kernel ``_kernel``, ``:49``):
+three matmuls, two ReLUs and the weight quantizer in one kernel, so only
+the int32 weights leave the chip.  ``score_rows_cuda`` runs the same
+MLP on packed rows and returns the scores, for the fleet planner.  Both
+launch ``csrc/mlp.cu`` on CUDA tensors (see the bound and design notes
+there) and run their plain versions, :func:`forward_reference` and
+:func:`dense_scores`, on CPU tensors.
+
+Arithmetic order, shared by kernel and plain version: bf16 operands,
+f32 accumulation, each matmul rounded to bf16, the bf16 bias added with
+one more rounding to bf16, then ReLU (``pallas_mlp.py:40-58``; XLA's
+dense bf16 path rounds the same way).  The kernel sums in another order
+than a GEMM, so the two agree within a bf16 ulp of the scores and +-1
+on a small fraction of the weights, as the JAX package's kernel and its
+XLA path do (``pallas_mlp.py:19-25``).
+
+Params are the model's dict: ``w1`` [F, H], ``b1`` [H], ``w2`` [H, H],
+``b2`` [H], ``w3`` [H, 1], ``b3`` [1], all bfloat16.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from ..kernels.build import Kernel, require_cuda
+from .cuda_weights import plan_block
+
+Params = Dict[str, torch.Tensor]
+
+#: the kernel holds one hidden unit per thread of a 128-thread block
+MAX_HIDDEN = 128
+#: feature rows stage through shared memory 32 rows at a time
+MAX_FEATURES = 64
+
+_P = ctypes.c_void_p
+_MLP_PLAN = Kernel("fused_mlp_plan", "agac_mlp_plan",
+                   [_P] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int])
+_MLP_SCORES = Kernel("fused_mlp_scores", "agac_mlp_scores",
+                     [_P] * 8 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int])
+
+_PARAM_NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
+def _bf16_linear(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    # exact bf16 products summed in full f32 (TF32 off), rounded to bf16
+    return (x.float() @ w.float()).to(torch.bfloat16) + b
+
+
+def dense_scores(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """[..., F] -> [...] float32 scores through three dense matmuls (the
+    plain version of the kernel's MLP)."""
+    # f32 GEMMs on the card must not drop to TF32 (10-bit mantissa):
+    # the products are exact only in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = x.to(torch.bfloat16)
+    h = torch.relu(_bf16_linear(x, params["w1"], params["b1"]))
+    h = torch.relu(_bf16_linear(h, params["w2"], params["b2"]))
+    s = _bf16_linear(h, params["w3"], params["b3"])
+    return s[..., 0].float()
+
+
+def forward_reference(params: Params, features: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernel K3: [G, E, F] + mask -> int32 [G, E]."""
+    return plan_block(dense_scores(params, features), mask)
+
+
+def _kernel_params(name: str, params: Params, dev: torch.device):
+    ps = [params[k] for k in _PARAM_NAMES]
+    require_cuda(name, *ps)
+    if ps[0].device != dev:
+        raise ValueError(f"{name}: params on {ps[0].device}, inputs on "
+                         f"{dev}")
+    F, H = ps[0].shape
+    want = {"w1": (F, H), "b1": (H,), "w2": (H, H), "b2": (H,),
+            "w3": (H, 1), "b3": (1,)}
+    for k, p in zip(_PARAM_NAMES, ps):
+        if p.dtype != torch.bfloat16 or tuple(p.shape) != want[k]:
+            raise ValueError(f"{name}: {k} must be bfloat16 {want[k]}, got "
+                             f"{p.dtype} {tuple(p.shape)}")
+    if H > MAX_HIDDEN or F > MAX_FEATURES:
+        raise ValueError(f"{name}: the kernel takes H <= {MAX_HIDDEN} and "
+                         f"F <= {MAX_FEATURES}, got H={H}, F={F}")
+    return [p.contiguous() for p in ps], F, H
+
+
+def forward_cuda(params: Params, features: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """[G, E, F] features + [G, E] bool mask -> int32 weights [G, E]:
+    kernel K3 on CUDA tensors, :func:`forward_reference` on CPU
+    tensors."""
+    if features.device.type == "cpu" and mask.device.type == "cpu":
+        return forward_reference(params, features, mask)
+    dev = require_cuda("forward_cuda", features, mask)
+    ps, F, H = _kernel_params("forward_cuda", params, dev)
+    if features.dim() != 3 or features.shape[2] != F \
+            or tuple(mask.shape) != tuple(features.shape[:2]) \
+            or mask.dtype != torch.bool:
+        raise ValueError(f"forward_cuda: features {tuple(features.shape)} "
+                         f"must be [G, E, {F}] with a bool [G, E] mask, got "
+                         f"mask {mask.dtype} {tuple(mask.shape)}")
+    G, E, _ = features.shape
+    x = features.to(torch.bfloat16).contiguous()
+    out = torch.empty((G, E), dtype=torch.int32, device=dev)
+    if out.numel():
+        _MLP_PLAN(dev, x, mask.contiguous(), *ps, out, G, E, F, H)
+    return out
+
+
+def score_rows_cuda(params: Params, rows: torch.Tensor) -> torch.Tensor:
+    """[N, F] packed rows -> [N] float32 scores: the kernel's MLP on CUDA
+    tensors (every row through the same code, so a row's score does not
+    depend on N), :func:`dense_scores` on CPU tensors."""
+    if rows.device.type == "cpu":
+        return dense_scores(params, rows)
+    dev = require_cuda("score_rows_cuda", rows)
+    ps, F, H = _kernel_params("score_rows_cuda", params, dev)
+    if rows.dim() != 2 or rows.shape[1] != F:
+        raise ValueError(f"score_rows_cuda: rows {tuple(rows.shape)} must "
+                         f"be [N, {F}]")
+    N = rows.shape[0]
+    x = rows.to(torch.bfloat16).contiguous()
+    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    if N:
+        _MLP_SCORES(dev, x, *ps, out, N, F, H)
+    return out

@@ -1,0 +1,46 @@
+"""The tolerances the port is held to, against its kernels' plain
+versions on the card and against the JAX package on the CPU.
+
+- Ids, masks, memberships and splices are exact.
+- Integer weights may differ by one unit at the x255 rounding boundary,
+  where another exp or summation order moves the product across .5, on
+  at most 0.5% of the cells: the drift the JAX package accepts between
+  its own fused kernel and its XLA path (``ops/pallas_mlp.py:19-25``).
+- Float scores agree within 2 bf16 ulps (each matmul rounds to bf16, so
+  a different f32 summation order can move a score by one bf16 step).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+MAX_WEIGHT_DIFF = 1
+MAX_MISMATCH_FRAC = 0.005
+MAX_SCORE_ULPS = 2
+
+
+def weight_mismatch(got, want) -> Tuple[int, float]:
+    """(max |got - want|, fraction of cells that differ) of two integer
+    weight arrays."""
+    d = np.abs(np.asarray(got, np.int64) - np.asarray(want, np.int64))
+    if d.size == 0:
+        return 0, 0.0
+    return int(d.max()), float((d > 0).mean())
+
+
+def weights_close(got, want) -> bool:
+    err, frac = weight_mismatch(got, want)
+    return err <= MAX_WEIGHT_DIFF and frac <= MAX_MISMATCH_FRAC
+
+
+def bf16_ulp(x) -> np.ndarray:
+    """The spacing of bfloat16 numbers (8-bit significand) at ``x``."""
+    a = np.maximum(np.abs(np.asarray(x, np.float64)), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+def scores_close(got, want, ulps: int = MAX_SCORE_ULPS) -> bool:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return bool(np.all(np.abs(got - want) <= ulps * bf16_ulp(want)))
