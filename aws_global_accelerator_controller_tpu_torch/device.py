@@ -94,10 +94,3 @@ def resolve_device(device: Device = "cuda") -> torch.device:
             _probe(dev)
             _probed.add(dev.index)
     return dev
-
-
-def reset_probe() -> None:
-    """Forget which devices passed the probe, so the next use of each
-    runs it again, as a fresh process would."""
-    with _lock:
-        _probed.clear()

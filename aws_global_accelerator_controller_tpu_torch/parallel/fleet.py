@@ -87,23 +87,34 @@ def row_splice(dst: torch.Tensor, lin: torch.Tensor,
     """Write ``rows`` [K, W] into ``dst`` [rows_total, W] at rows
     ``lin`` [K], in place, and return ``dst``: kernel K4 on CUDA
     tensors, :func:`row_splice_reference` on CPU tensors.  Rows that
-    share a destination must be equal (the planner's pad rows are)."""
+    share a destination must be equal (the planner's pad rows are).
+
+    Every ``lin`` must lie in ``[0, rows_total)``, or this raises
+    :class:`IndexError` before anything is written; on CUDA tensors
+    the check reads ``lin``'s range back to the host (one sync)."""
     if dst.dim() != 2 or rows.dim() != 2 or lin.dim() != 1 \
             or rows.shape != (lin.shape[0], dst.shape[1]):
         raise ValueError(f"row_splice: dst {tuple(dst.shape)}, lin "
                          f"{tuple(lin.shape)} and rows {tuple(rows.shape)} "
                          f"must be [R, W], [K] and [K, W]")
-    if dst.device.type == "cpu" and lin.device.type == "cpu" \
-            and rows.device.type == "cpu":
-        return row_splice_reference(dst, lin, rows)
-    dev = require_cuda("row_splice", dst, lin, rows)
-    if dst.dtype != torch.int32 or rows.dtype != torch.int32 \
-            or lin.dtype != torch.int32:
-        raise ValueError("row_splice: dst, lin and rows must be int32")
-    if not dst.is_contiguous():
-        raise ValueError("row_splice writes in place: dst must be "
-                         "contiguous")
+    on_cpu = dst.device.type == "cpu" and lin.device.type == "cpu" \
+        and rows.device.type == "cpu"
+    if not on_cpu:
+        dev = require_cuda("row_splice", dst, lin, rows)
+        if dst.dtype != torch.int32 or rows.dtype != torch.int32 \
+                or lin.dtype != torch.int32:
+            raise ValueError("row_splice: dst, lin and rows must be int32")
+        if not dst.is_contiguous():
+            raise ValueError("row_splice writes in place: dst must be "
+                             "contiguous")
     K, W = rows.shape
+    if K:
+        lo, hi = torch.stack(torch.aminmax(lin)).tolist()
+        if lo < 0 or hi >= dst.shape[0]:
+            raise IndexError(f"row_splice: row index in [{lo}, {hi}] "
+                             f"outside [0, {dst.shape[0]})")
+    if on_cpu:
+        return row_splice_reference(dst, lin, rows)
     if K:
         _SPLICE(dev, dst, lin.contiguous(), rows.contiguous(), K, W)
     return dst
@@ -113,7 +124,9 @@ def make_row_splice(device: torch.device):
     """Splice ``(dst, ks, kg, rows) -> dst`` writing ``rows`` at
     positions ``(ks[i], kg[i])`` of a resident ``[S, cap, E]`` grid or
     ``[S, cap]`` plane, in place.  ``ks``/``kg`` are host numpy arrays,
-    bounds-checked here before the row indices go to the device."""
+    each checked against its own axis here (a ``kg`` past ``cap`` can
+    still land inside the flat grid, where :func:`row_splice` checks
+    the flat row index)."""
 
     def splice(dst: torch.Tensor, ks: np.ndarray, kg: np.ndarray,
                rows: torch.Tensor) -> torch.Tensor:

@@ -7,21 +7,24 @@ Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``).  It builds the port's kernels from
 ``aws_global_accelerator_controller_tpu_torch/csrc`` and then:
 
-1. holds every kernel against its plain PyTorch version on the card, at
-   the shapes the planning path gives it, and times both (and, where
-   one exists, a PyTorch call computing the same function);
-2. runs the ``plan`` command (16384 groups x 16 endpoints, the fused MLP
+1. runs the ``plan`` command (16384 groups x 16 endpoints, the fused MLP
    kernel) and checks its weights against the same command on the CPU;
-3. plans a 16384-group fleet with ``WholeFleetPlanner`` (cap 16, mean
+   its first use of the card runs the device probe;
+2. plans a 16384-group fleet with ``WholeFleetPlanner`` (cap 16, mean
    occupancy 2.5) and checks it against the same planner on the CPU;
-4. builds a 1,000,000-group resident fleet over 128 shards (cap 4),
+3. builds a 1,000,000-group resident fleet over 128 shards (cap 4),
    plans it, runs three waves of 1% clustered churn and one clean wave
    through ``ResidentFleetPlanner``, and checks the resident plan
-   bit for bit against a full repack (``verify_full_repack``).
+   bit for bit against a full repack (``verify_full_repack``);
+4. holds every kernel against its plain PyTorch version on the card, at
+   the shapes the planning path gives it, and times both (and, where
+   one exists, a PyTorch call computing the same function).
 
-Before phases 2-4 every launch count is set to 0 (and the device probe
-forgotten, so it runs as in a fresh process); after each phase the
-script fails unless every kernel that phase runs was launched.
+Before phases 1-3 every launch count is set to 0; after each phase the
+script fails unless every kernel that phase runs was launched.  Phase 3
+reads its counts after the last churn wave, demands that the churn
+waves alone launched each of their kernels, and reports the full
+repack's launches apart.
 
 Output: the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -55,6 +58,8 @@ RESIDENT_SHARDS = 128
 RESIDENT_CAP = 4
 RESIDENT_DIRT = 0.01        # fraction of the fleet churned per wave
 RESIDENT_WAVES = 3
+#: kernels every churn wave runs: row scoring, quantizer, dirty-row splice
+WAVE_KERNELS = ("fused_mlp_scores", "plan_weights", "row_splice")
 FLEET_GROUPS = 16384
 FLEET_CAP = 16
 FLEET_SHARDS = 8
@@ -208,7 +213,9 @@ def fleet_plan_groups(groups: int, shards: int, seed: int = 0):
 class ResidentFleetGen:
     """The resident-wave shape: contiguous key blocks per shard, 1-4
     endpoints a group, version 0 with 20% observed drift, later versions
-    with drift resolved and observed weights re-rolled."""
+    with drift resolved and observed weights re-rolled.  In later
+    versions every fourth group also carries fresh features, so the
+    churn waves rescore rows as well as re-diff them."""
 
     def __init__(self, groups: int, shards: int, seed: int = 0):
         import numpy as np
@@ -226,6 +233,7 @@ class ResidentFleetGen:
 
         nd = int(self.ne[i])
         desired = [_arn(i, j) for j in range(nd)]
+        feats = self.feats[i, :nd]
         if version == 0:
             observed = (desired[1:] if i % 5 == 0 and nd > 1
                         else list(desired))
@@ -234,10 +242,12 @@ class ResidentFleetGen:
             observed = list(desired)
             obs_w = [int(w) for w in
                      self.rng.integers(0, 256, len(observed))]
+            if i % 4 == 0:
+                feats = self.rng.standard_normal((nd, F)).astype(
+                    feats.dtype)
         return GroupState(
             key=f"default/b{i}", group_arn=f"eg-{i}", desired=desired,
-            observed=observed, observed_weights=obs_w,
-            features=self.feats[i, :nd],
+            observed=observed, observed_weights=obs_w, features=feats,
             fingerprint=version * self.groups + i + 1,
             shard=(i * self.shards) // self.groups)
 
@@ -400,6 +410,7 @@ def _k4_one(S, cap, W, K, seed):
     import numpy as np
     import torch
 
+    from aws_global_accelerator_controller_tpu_torch.parallel import fleet
     from aws_global_accelerator_controller_tpu_torch.parallel.fleet import (
         row_splice,
         row_splice_reference,
@@ -420,14 +431,17 @@ def _k4_one(S, cap, W, K, seed):
     check(torch.equal(got, want), f"row_splice [{S * cap}, {W}] disagrees")
     dst = base.clone()
     lin64 = lin.long()
+    # the wrapper's bounds check reads lin's range back to the host,
+    # which a CUDA graph cannot capture: the device time is the bare
+    # kernel's, the eager time the wrapper's, check included
+    times = timings(lambda: fleet._SPLICE(dst.device, dst, lin, rows, K, W),
+                    lambda: row_splice_reference(dst, lin, rows),
+                    lambda: dst.index_copy_(0, lin64, rows))
+    times["eager_ms"] = time_eager(lambda: row_splice(dst, lin, rows))
     return _record(
         "row_splice", f"{SRC}/row_splice.cu",
         f"{REF}/parallel/fleet.py:258", f"{K} rows into {S * cap}x{W}",
-        0.0, 0.0,
-        timings(lambda: row_splice(dst, lin, rows),
-                lambda: row_splice_reference(dst, lin, rows),
-                lambda: dst.index_copy_(0, lin64, rows)),
-        bound_ms(K * (W * 8 + 4), 0.0, F32_FLOP_PER_S))
+        0.0, 0.0, times, bound_ms(K * (W * 8 + 4), 0.0, F32_FLOP_PER_S))
 
 
 def _k4():
@@ -563,6 +577,7 @@ def phase_resident(device: str, groups: int = RESIDENT_GROUPS,
     cold_ms = (time.perf_counter() - t0) * 1e3
     check(cold.device_call and cold.dirty_groups == groups,
           "resident: the cold wave did not plan every group")
+    after_cold = launch_counts() if launch_counts else None
     n_mut = max(1, int(groups * RESIDENT_DIRT))
     rows = []
     for wv in range(RESIDENT_WAVES):
@@ -579,29 +594,45 @@ def phase_resident(device: str, groups: int = RESIDENT_GROUPS,
         rows.append({"dirty_shards": w.dirty_shards,
                      "dirty_groups": w.dirty_groups,
                      "ingest_ms": ingest_ms, "plan_ms": plan_ms,
+                     "rescored_groups": w.stats["rescored_groups"],
                      "reweights": w.stats["reweights"]})
+        check(w.stats["rescored_groups"] > 0,
+              f"resident wave {wv}: no group rescored")
         planner.flush_complete()
+    # the waves' launches, read before the oracle pass launches its own
+    launches = launch_counts() if launch_counts else {}
+    churn = {k: v - after_cold[k] for k, v in launches.items()} \
+        if launch_counts else {}
+    if launch_counts and planner.device.type == "cuda":
+        missing = [k for k in WAVE_KERNELS if churn.get(k, 0) == 0]
+        check(not missing,
+              f"resident: the churn waves never launched {missing}")
     calls = planner.device_calls
-    before = launch_counts() if launch_counts else None
     clean = planner.plan_wave()
     check(not clean.device_call and planner.device_calls == calls,
           "resident: a clean wave touched the device")
     if launch_counts:
-        check(launch_counts() == before,
+        check(launch_counts() == launches,
               "resident: a clean wave launched a kernel")
     t0 = time.perf_counter()
     verdict = planner.verify_full_repack()
     verify_s = time.perf_counter() - t0
-    launches = launch_counts() if launch_counts else {}
+    verify_launches = {k: v - launches[k]
+                       for k, v in launch_counts().items()} \
+        if launch_counts else {}
     check(verdict["match"] is True,
           f"resident: incremental plan differs from the full repack: "
           f"{verdict}")
     return {"phase": "resident", "device": str(planner.device),
             "groups": groups, "shards": shards, "endpoints_cap": cap,
             "dirt": RESIDENT_DIRT, "build_s": build_s,
-            "cold_wave_ms": cold_ms, "waves": rows, "clean_wave_device_call": clean.device_call,
+            "cold_wave_ms": cold_ms, "waves": rows,
+            "clean_wave_device_call": clean.device_call,
             "verify_full_repack": verdict, "verify_s": verify_s,
-            "launches": launches}
+            "launches": launches,
+            "churn_launches": {k: v for k, v in churn.items() if v},
+            "verify_launches": {k: v for k, v in verify_launches.items()
+                                if v}}
 
 
 # ---------------------------------------------------------------------------
@@ -616,12 +647,11 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def run_path_phase(name, fn, expect, build, device):
-    """Zero the launch counts (and forget the probe), drive one phase of
-    the main path, and demand that each kernel in ``expect`` launched in
-    it (the phase reads the counts right after its path ran)."""
+def run_path_phase(name, fn, expect, build):
+    """Zero the launch counts, drive one phase of the main path, and
+    demand that each kernel in ``expect`` launched in it (the phase
+    reads the counts right after its path ran)."""
     build.reset_launch_counts()
-    device.reset_probe()
     out = fn(build.launch_counts)
     counts = {k: v for k, v in out["launches"].items() if v}
     out["launches"] = counts
@@ -641,7 +671,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    from aws_global_accelerator_controller_tpu_torch import device
     from aws_global_accelerator_controller_tpu_torch.kernels import build
 
     t_all = time.perf_counter()
@@ -651,26 +680,27 @@ def main() -> int:
     log(json.dumps({"phase": "build",
                     "seconds": time.perf_counter() - t0}))
 
-    t0 = time.perf_counter()
-    kernels = phase_kernels()
-    log(json.dumps({"phase": "kernels",
-                    "seconds": time.perf_counter() - t0}))
-
+    # the path first: its first use of the card runs the device probe
+    # (K1), as in any fresh process
     totals = {}
     path = (("plan", lambda c: phase_plan("cuda", launch_counts=c),
              ("probe_double", "fused_mlp_plan")),
             ("whole_fleet", lambda c: phase_fleet("cuda", launch_counts=c),
-             ("probe_double", "fused_mlp_scores", "plan_weights")),
+             ("fused_mlp_scores", "plan_weights")),
             ("resident", lambda c: phase_resident("cuda", launch_counts=c),
-             ("probe_double", "fused_mlp_scores", "plan_weights",
-              "row_splice")))
+             WAVE_KERNELS))
     for name, fn, expect in path:
         t0 = time.perf_counter()
-        counts = run_path_phase(name, fn, expect, build, device)
+        counts = run_path_phase(name, fn, expect, build)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         log(json.dumps({"phase": name + "_wall",
                         "seconds": time.perf_counter() - t0}))
+
+    t0 = time.perf_counter()
+    kernels = phase_kernels()
+    log(json.dumps({"phase": "kernels",
+                    "seconds": time.perf_counter() - t0}))
 
     for rec in kernels:
         rec["launches"] = totals.get(rec["name"], 0)

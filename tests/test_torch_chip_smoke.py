@@ -27,4 +27,6 @@ def test_resident_phase_rehearses_on_cpu():
     assert out["verify_full_repack"]["match"] is True
     assert out["clean_wave_device_call"] is False
     assert [w["dirty_groups"] for w in out["waves"]] == [20, 20, 20]
+    assert all(w["rescored_groups"] > 0 for w in out["waves"])
     assert not any(out["launches"].values())
+    assert not out["churn_launches"] and not out["verify_launches"]

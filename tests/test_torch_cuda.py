@@ -121,6 +121,18 @@ def test_splice_kernel_matches_plain_version_in_place(cuda):
                            row_splice_reference(base.clone(), lin, rows))
 
 
+@pytest.mark.parametrize("lin", [[300], [-1], [0, 5, 300]])
+def test_splice_kernel_refuses_rows_outside_the_grid(cuda, lin):
+    dst = torch.zeros((300, 4), dtype=torch.int32, device=cuda)
+    rows = torch.ones((len(lin), 4), dtype=torch.int32, device=cuda)
+    before = build.launch_counts()["row_splice"]
+    with pytest.raises(IndexError):
+        row_splice(dst, torch.tensor(lin, dtype=torch.int32, device=cuda),
+                   rows)
+    assert build.launch_counts()["row_splice"] == before
+    assert not dst.any()
+
+
 def fleet_groups(n, shards, seed):
     rng = np.random.default_rng(seed)
     out = []

@@ -207,6 +207,10 @@ def test_row_splice_checks_bounds_and_shapes():
     for ks, kg in (([2], [0]), ([0], [3]), ([-1], [0])):
         with pytest.raises(IndexError):
             splice(grid, np.array(ks), np.array(kg), rows)
+    for lin in ([6], [-1], [0, 6]):
+        with pytest.raises(IndexError):
+            row_splice(grid.view(6, 4), torch.tensor(lin, dtype=torch.int32),
+                       rows.expand(len(lin), 4))
     assert not grid.any()
     with pytest.raises(ValueError):
         row_splice(grid.view(6, 4), torch.zeros(2, dtype=torch.int32),
