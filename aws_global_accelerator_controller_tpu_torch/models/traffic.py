@@ -18,6 +18,7 @@ import torch
 from ..device import Device, resolve_device
 from ..ops.cuda_mlp import dense_scores, forward_cuda, score_rows_cuda
 from ..ops.weights import plan_weights
+from .common import masked_ce_loss
 
 Params = Dict[str, torch.Tensor]
 
@@ -96,6 +97,12 @@ class TrafficPolicyModel:
                       mask: torch.Tensor) -> torch.Tensor:
         """The plain forward: dense scores, then ``plan_weights``."""
         return plan_weights(self.scores(params, features), mask)
+
+    def loss(self, params: Params, batch: Batch) -> torch.Tensor:
+        """Masked cross-entropy between the planned distribution and the
+        target weight distribution (``models/common.py``)."""
+        return masked_ce_loss(self.scores(params, batch.features),
+                              batch.mask, batch.target)
 
 
 def synthetic_batch(rng: np.random.Generator, groups: int = 64,

@@ -48,10 +48,17 @@ _MLP_SCORES = Kernel("fused_mlp_scores", "agac_mlp_scores",
 _PARAM_NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
-def _bf16_linear(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    # exact bf16 products summed in full f32 (TF32 off), rounded to bf16
-    return (x.float() @ w.float()).to(torch.bfloat16) + b
+def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as XLA's bf16 dot computes it: exact bf16 products summed
+    in full f32 (TF32 off), rounded to bf16."""
+    return (x.float() @ w.float()).to(torch.bfloat16)
+
+
+def bf16_linear(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` in bf16: the product rounded, then the bf16 bias
+    added with one more rounding."""
+    return bf16_matmul(x, w) + b
 
 
 def dense_scores(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -61,9 +68,9 @@ def dense_scores(params: Params, x: torch.Tensor) -> torch.Tensor:
     # the products are exact only in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     x = x.to(torch.bfloat16)
-    h = torch.relu(_bf16_linear(x, params["w1"], params["b1"]))
-    h = torch.relu(_bf16_linear(h, params["w2"], params["b2"]))
-    s = _bf16_linear(h, params["w3"], params["b3"])
+    h = torch.relu(bf16_linear(x, params["w1"], params["b1"]))
+    h = torch.relu(bf16_linear(h, params["w2"], params["b2"]))
+    s = bf16_linear(h, params["w3"], params["b3"])
     return s[..., 0].float()
 
 

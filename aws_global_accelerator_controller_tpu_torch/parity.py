@@ -8,6 +8,12 @@ versions on the card and against the JAX package on the CPU.
   its own fused kernel and its XLA path (``ops/pallas_mlp.py:19-25``).
 - Float scores agree within 2 bf16 ulps (each matmul rounds to bf16, so
   a different f32 summation order can move a score by one bf16 step).
+- Attention outputs (kernel K6a) agree within 2 bf16 ulps of the
+  magnitude they average, sum_j w_j |v_j| (:func:`attention_close`), not
+  of themselves: p is rounded to bf16 before p.v, and another f32 order
+  of the scores can round one p the other way (a change of one bf16 ulp
+  of w_j |v_j|); where the sum cancels to near zero that is many ulps of
+  the output but never more than one of the magnitude.
 """
 from __future__ import annotations
 
@@ -40,7 +46,19 @@ def bf16_ulp(x) -> np.ndarray:
     return 2.0 ** (np.floor(np.log2(a)) - 7)
 
 
-def scores_close(got, want, ulps: int = MAX_SCORE_ULPS) -> bool:
+def scores_close(got, want, ulps: int = MAX_SCORE_ULPS,
+                 scale=None) -> bool:
+    """|got - want| <= ``ulps`` bf16 ulps of |want| elementwise, or of
+    ``scale`` (broadcast) where that is larger."""
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
-    return bool(np.all(np.abs(got - want) <= ulps * bf16_ulp(want)))
+    ref = np.abs(want)
+    if scale is not None:
+        ref = np.maximum(ref, np.abs(np.asarray(scale, np.float64)))
+    return bool(np.all(np.abs(got - want) <= ulps * bf16_ulp(ref)))
+
+
+def attention_close(got, want, magnitude, ulps: int = MAX_SCORE_ULPS) -> bool:
+    """Attention outputs within ``ulps`` bf16 ulps of ``magnitude``, the
+    same attention over |v| (sum_j w_j |v_j|)."""
+    return scores_close(got, want, ulps, scale=magnitude)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's weight-planning path on one NVIDIA GPU.
+"""Drive the PyTorch port's weight-planning and temporal paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,15 +17,28 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
    plans it, runs three waves of 1% clustered churn and one clean wave
    through ``ResidentFleetPlanner``, and checks the resident plan
    bit for bit against a full repack (``verify_full_repack``);
-4. holds every kernel against its plain PyTorch version on the card, at
-   the shapes the planning path gives it, and times both (and, where
-   one exists, a PyTorch call computing the same function).
+4. runs ``plan --model temporal`` at its defaults against the same
+   command on the CPU; serving plans through the O(T) last-query path,
+   so it must launch no flash attention, as in the reference;
+5. runs ``eval --model temporal --supervision sequence`` at its defaults
+   (16 batches of a 64-step window over 64 x 16 endpoint streams, D = 32)
+   against the same command on the CPU: exactly one flash-attention
+   launch per batch;
+6. runs ``scores_seq`` of a temporal model with D = 128, hidden 256 on a
+   2048-step window of 8 x 16 streams once through the flash kernel and
+   holds it against the dense reference attention on the card;
+7. holds every kernel against its plain PyTorch version on the card, at
+   the shapes the paths give it, and times both (and, where one exists,
+   a PyTorch call computing the same function); then times the flash
+   kernel against the dense reference attention at short windows (the
+   ``FLASH_MIN_WINDOW`` crossover).
 
-Before phases 1-3 every launch count is set to 0; after each phase the
-script fails unless every kernel that phase runs was launched.  Phase 3
-reads its counts after the last churn wave, demands that the churn
-waves alone launched each of their kernels, and reports the full
-repack's launches apart.
+Before each of phases 1-6 every launch count is set to 0; after each the
+script fails unless every kernel that phase runs was launched (and, for
+the flash kernel in phases 4-6, launched exactly as often as the path
+calls it).  Phase 3 reads its counts after the last churn wave, demands
+that the churn waves alone launched each of their kernels, and reports
+the full repack's launches apart.
 
 Output: the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -64,6 +78,15 @@ FLEET_GROUPS = 16384
 FLEET_CAP = 16
 FLEET_SHARDS = 8
 F = 8
+#: the eval command's default batch count: one flash launch per batch
+EVAL_BATCHES = 16
+#: the repo's production temporal shape (bench.py:2221-2223): a 2048-step
+#: window over 8 x 16 endpoint streams, embed 128, hidden 256
+SEQ_WINDOW, SEQ_GROUPS, SEQ_ENDPOINTS = 2048, 8, 16
+SEQ_EMBED, SEQ_HIDDEN = 128, 256
+#: the JAX package's flash-vs-reference tolerance
+#: (tests/test_temporal_model.py:41-42)
+SEQ_TOL = 2e-2
 
 
 class SmokeError(RuntimeError):
@@ -131,13 +154,15 @@ def time_device(fn, iters: int = 20, replays: int = 5) -> float:
     return ms
 
 
-def timings(kernel, plain, library=None) -> dict:
+def timings(kernel, plain, library=None, iters: int = 20,
+            eager_iters: int = 50) -> dict:
     """Device and eager ms of a kernel's wrapper, its plain version and,
     where there is one, a PyTorch call computing the same function."""
-    return {"ms": time_device(kernel), "plain_ms": time_device(plain),
-            "library_ms": time_device(library) if library else None,
-            "eager_ms": time_eager(kernel),
-            "plain_eager_ms": time_eager(plain)}
+    return {"ms": time_device(kernel, iters),
+            "plain_ms": time_device(plain, iters),
+            "library_ms": time_device(library, iters) if library else None,
+            "eager_ms": time_eager(kernel, eager_iters),
+            "plain_eager_ms": time_eager(plain, eager_iters)}
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -316,10 +341,9 @@ def _k2_one(G, E, seed):
 
 
 def _other_shape(main: dict, other: dict) -> dict:
-    keep = ("shape", "max_abs_err", "mismatch_frac", "ms", "plain_ms",
-            "library_ms", "eager_ms", "plain_eager_ms", "bound_ms",
-            "bound_by")
-    main["at_other_shapes"] = [{k: other[k] for k in keep}]
+    same = ("name", "route", "source", "replaces", "launches")
+    main["at_other_shapes"] = [{k: v for k, v in other.items()
+                                if k not in same}]
     main["max_abs_err"] = max(main["max_abs_err"], other["max_abs_err"])
     main["mismatch_frac"] = max(main["mismatch_frac"],
                                 other["mismatch_frac"])
@@ -451,8 +475,87 @@ def _k4():
         _k4_one(RESIDENT_SHARDS, cap, 1, 10_000, 6))
 
 
+def _k6a_one(T, S, D, seed, iters=20, eager_iters=50):
+    import numpy as np
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch import parity
+    from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention \
+        import BLOCK_K, flash_attention, flash_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(T, S, D, device="cuda", generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v, True, BLOCK_K)
+    mag = flash_attention_plain(q, k, v.abs(), True, BLOCK_K)
+    torch.cuda.synchronize()
+    got_h, want_h, mag_h = (_host(x.float()) for x in (got, want, mag))
+    check(bool(np.isfinite(got_h).all()),
+          f"flash_attention T={T} S={S} D={D}: non-finite output")
+    diff = np.abs(got_h - want_h)
+    ulps_of_mag = float((diff / parity.bf16_ulp(
+        np.maximum(np.abs(want_h), np.abs(mag_h)))).max())
+    check(parity.attention_close(got_h, want_h, mag_h),
+          f"flash_attention T={T} S={S} D={D}: {ulps_of_mag} bf16 ulps of "
+          f"the magnitude from its plain version (allowed "
+          f"{parity.MAX_SCORE_ULPS})")
+    # the yardstick: PyTorch's fused attention on head-major copies
+    qh, kh, vh = (x.transpose(0, 1).unsqueeze(0).contiguous()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = _record(
+        "flash_attention", f"{SRC}/flash_attention.cu",
+        f"{REF}/ops/pallas_attention.py:287", f"T={T} S={S} D={D}",
+        float(diff.max()), float((diff > 0).mean()),
+        timings(lambda: flash_attention(q, k, v),
+                lambda: flash_attention_plain(q, k, v, True, BLOCK_K),
+                lambda: sdpa(qh, kh, vh, is_causal=True), iters=iters,
+                eager_iters=eager_iters),
+        # q, k, v read and o written once; 4 D flops per live
+        # (query, key) pair, T (T + 1) / 2 of them per head
+        bound_ms(4 * T * S * D * 2, 2.0 * D * S * T * (T + 1),
+                 BF16_FLOP_PER_S))
+    rec["max_ulps_of_magnitude"] = ulps_of_mag
+    rec["max_ulps_of_output"] = float((diff / parity.bf16_ulp(want_h)).max())
+    return rec
+
+
+def _k6a():
+    return _other_shape(_k6a_one(64, 1024, 32, 7),
+                        _k6a_one(SEQ_WINDOW, SEQ_GROUPS * SEQ_ENDPOINTS,
+                                 SEQ_EMBED, 8, iters=5, eager_iters=5))
+
+
 def phase_kernels() -> list:
-    return [_k1(), _k2(), _k3(), _k3_scores(), _k4()]
+    return [_k1(), _k2(), _k3(), _k3_scores(), _k4(), _k6a()]
+
+
+def phase_flash_crossover(S: int = 1024, D: int = 32,
+                          windows=(8, 16, 32, 64, 128, 256)) -> dict:
+    """Device ms of the flash kernel and of the dense reference attention
+    (what the temporal model runs below ``FLASH_MIN_WINDOW``) on the same
+    bf16 q, k, v at short windows, S = 1024 streams of D = 32 (the eval
+    command's width): the data for re-deriving the crossover on the
+    card."""
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention \
+        import flash_attention
+    from aws_global_accelerator_controller_tpu_torch.parallel \
+        .ring_attention import attention_reference
+
+    rows = []
+    for T in windows:
+        g = torch.Generator(device="cuda").manual_seed(T)
+        q, k, v = (torch.randn(T, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
+        rows.append({"T": T,
+                     "flash_ms": time_device(lambda: flash_attention(q, k, v)),
+                     "reference_ms": time_device(
+                         lambda: attention_reference(q, k, v, causal=True))})
+    return {"phase": "flash_crossover", "streams": S, "embed_dim": D,
+            "windows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -460,42 +563,152 @@ def phase_kernels() -> list:
 # ---------------------------------------------------------------------------
 
 
+def run_cli(argv) -> tuple:
+    """(the JSON a port command printed, its wall ms)."""
+    from aws_global_accelerator_controller_tpu_torch.cmd.compute import main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    ms = (time.perf_counter() - t0) * 1e3
+    check(rc == 0, f"{' '.join(argv)} exited {rc}")
+    return json.loads(buf.getvalue()), ms
+
+
+def _plan_vs_cpu(name, argv, device, groups, endpoints, launch_counts):
+    """Run a ``plan`` command on ``device`` and on the CPU, check the
+    weights' shape, range and sums and their agreement.
+    ``launch_counts`` is read right after the path ran, before any
+    comparison or timing launches a kernel."""
+    import torch
+
+    out, ms = run_cli([*argv, "--device", device])
+    launches = launch_counts() if launch_counts else {}
+    w = torch.tensor(out["weights"], dtype=torch.int32)
+    check(tuple(w.shape) == (groups, endpoints),
+          f"{name}: weights shape {tuple(w.shape)}")
+    check(bool(((w >= 0) & (w <= 255)).all().item()),
+          f"{name}: weights outside [0, 255]")
+    sums = w.sum(dim=1)
+    check(bool(((sums == 0) | ((sums - 255).abs() <= endpoints)).all()
+               .item()), f"{name}: a group's weights do not sum to ~255")
+    ref, _ = run_cli([*argv, "--device", "cpu"])
+    err, frac = check_weights(f"{name} vs cpu", w,
+                              torch.tensor(ref["weights"],
+                                           dtype=torch.int32))
+    return {"phase": name, "device": out["device"], "groups": groups,
+            "endpoints": endpoints, "ms": ms, "max_abs_err_vs_cpu": err,
+            "mismatch_frac_vs_cpu": frac, "launches": launches}
+
+
 def phase_plan(device: str, groups: int = FLEET_GROUPS,
                endpoints: int = FLEET_CAP, launch_counts=None) -> dict:
     """The ``plan`` command on ``device``, checked against the same
-    command on the CPU.  ``launch_counts`` is read right after the path
-    ran, before any comparison or timing launches a kernel."""
-    from aws_global_accelerator_controller_tpu_torch.cmd.compute import main
+    command on the CPU."""
+    return _plan_vs_cpu(
+        "plan", ["plan", "--groups", str(groups), "--endpoints",
+                 str(endpoints), "--seed", "0"],
+        device, groups, endpoints, launch_counts)
 
-    def run(dev):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = main(["plan", "--groups", str(groups), "--endpoints",
-                       str(endpoints), "--seed", "0", "--device", dev])
-        ms = (time.perf_counter() - t0) * 1e3
-        check(rc == 0, f"plan --device {dev} exited {rc}")
-        return json.loads(buf.getvalue()), ms
 
-    out, ms = run(device)
+def phase_temporal_plan(device: str, groups: int = 8, endpoints: int = 16,
+                        window: int = 64, launch_counts=None) -> dict:
+    """``plan --model temporal`` on ``device`` (the sizes default to the
+    command's own), checked against the same command on the CPU."""
+    return _plan_vs_cpu(
+        "temporal_plan", ["plan", "--model", "temporal", "--groups",
+                          str(groups), "--endpoints", str(endpoints),
+                          "--window", str(window), "--seed", "0"],
+        device, groups, endpoints, launch_counts)
+
+
+def phase_temporal_eval(device: str, batches: int = EVAL_BATCHES,
+                        groups: int = 64, endpoints: int = 16,
+                        hidden: int = 128, window: int = 64,
+                        launch_counts=None) -> dict:
+    """``eval --model temporal --supervision sequence`` on ``device``
+    (the sizes default to the command's own), checked against the same
+    command on the CPU: mean loss within 1e-3 relative, plan L1 within
+    1e-3, the same verdict against the uniform plan."""
+    argv = ["eval", "--model", "temporal", "--supervision", "sequence",
+            "--batches", str(batches), "--groups", str(groups),
+            "--endpoints", str(endpoints), "--hidden", str(hidden),
+            "--window", str(window), "--seed", "0"]
+    out, ms = run_cli([*argv, "--device", device])
     launches = launch_counts() if launch_counts else {}
+    ref, ref_ms = run_cli([*argv, "--device", "cpu"])
+    for k in ("mean_loss", "plan_l1", "uniform_l1"):
+        check(math.isfinite(out[k]), f"temporal_eval: {k} = {out[k]}")
+    loss_rel = abs(out["mean_loss"] - ref["mean_loss"]) / abs(
+        ref["mean_loss"])
+    l1_err = abs(out["plan_l1"] - ref["plan_l1"])
+    check(loss_rel <= 1e-3, f"temporal_eval: mean_loss {out['mean_loss']} "
+          f"vs {ref['mean_loss']} on the CPU")
+    check(l1_err <= 1e-3, f"temporal_eval: plan_l1 {out['plan_l1']} vs "
+          f"{ref['plan_l1']} on the CPU")
+    check(out["beats_uniform"] == ref["beats_uniform"],
+          "temporal_eval: beats_uniform differs from the CPU's")
+    return {"phase": "temporal_eval", **out, "ms": ms, "cpu_ms": ref_ms,
+            "cpu": {k: ref[k] for k in ("mean_loss", "plan_l1",
+                                        "uniform_l1", "beats_uniform")},
+            "mean_loss_rel_err_vs_cpu": loss_rel,
+            "plan_l1_err_vs_cpu": l1_err, "launches": launches}
+
+
+def phase_temporal_seq(device: str, steps: int = SEQ_WINDOW,
+                       groups: int = SEQ_GROUPS,
+                       endpoints: int = SEQ_ENDPOINTS,
+                       embed_dim: int = SEQ_EMBED,
+                       hidden_dim: int = SEQ_HIDDEN,
+                       launch_counts=None) -> dict:
+    """``scores_seq`` through the flash path once on ``device``, held to
+    the dense reference attention on the same device (rtol = atol =
+    ``SEQ_TOL``)."""
+    import numpy as np
     import torch
 
-    w = torch.tensor(out["weights"], dtype=torch.int32)
-    check(tuple(w.shape) == (groups, endpoints),
-          f"plan: weights shape {tuple(w.shape)}")
-    check(bool(((w >= 0) & (w <= 255)).all().item()),
-          "plan: weights outside [0, 255]")
-    sums = w.sum(dim=1)
-    check(bool(((sums == 0) | ((sums - 255).abs() <= endpoints)).all()
-               .item()), "plan: a group's weights do not sum to ~255")
-    ref, _ = run("cpu")
-    err, frac = check_weights("plan vs cpu", w,
-                              torch.tensor(ref["weights"],
-                                           dtype=torch.int32))
-    return {"phase": "plan", "device": out["device"], "groups": groups,
-            "endpoints": endpoints, "ms": ms, "max_abs_err_vs_cpu": err,
-            "mismatch_frac_vs_cpu": frac, "launches": launches}
+    from aws_global_accelerator_controller_tpu_torch.device import (
+        resolve_device,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.temporal import (
+        TemporalTrafficModel,
+        synthetic_window,
+    )
+
+    dev = resolve_device(device)
+    kw = dict(embed_dim=embed_dim, hidden_dim=hidden_dim,
+              supervision="sequence")
+    model = TemporalTrafficModel(attention="flash", **kw)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    window, _ = synthetic_window(np.random.default_rng(0), steps=steps,
+                                 groups=groups, endpoints=endpoints,
+                                 per_step=True, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    seq = model.scores_seq(params, window)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts() if launch_counts else {}
+    ref = TemporalTrafficModel(attention="reference", **kw).scores_seq(
+        params, window)
+    got_h, ref_h = _host(seq), _host(ref)
+    check(got_h.shape == (steps, groups, endpoints),
+          f"temporal_seq: scores shape {got_h.shape}")
+    check(bool(np.isfinite(got_h).all()), "temporal_seq: non-finite scores")
+    err = float(np.abs(got_h - ref_h).max())
+    check(bool(np.allclose(got_h, ref_h, rtol=SEQ_TOL, atol=SEQ_TOL)),
+          f"temporal_seq: flash vs reference attention max |ds| {err} "
+          f"(rtol = atol = {SEQ_TOL})")
+    return {"phase": "temporal_seq", "device": str(dev), "steps": steps,
+            "streams": groups * endpoints, "embed_dim": embed_dim,
+            "hidden_dim": hidden_dim, "ms": ms,
+            "max_abs_err_vs_reference": err, "launches": launches}
 
 
 def _compare_fleet(name, got, want):
@@ -647,16 +860,20 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def run_path_phase(name, fn, expect, build):
+def run_path_phase(name, fn, expect, build, exact=None):
     """Zero the launch counts, drive one phase of the main path, and
-    demand that each kernel in ``expect`` launched in it (the phase
-    reads the counts right after its path ran)."""
+    demand that each kernel in ``expect`` launched in it and each kernel
+    in ``exact`` exactly that many times (the phase reads the counts
+    right after its path ran)."""
     build.reset_launch_counts()
     out = fn(build.launch_counts)
     counts = {k: v for k, v in out["launches"].items() if v}
     out["launches"] = counts
     missing = [k for k in expect if counts.get(k, 0) == 0]
     check(not missing, f"{name}: kernels never launched: {missing}")
+    for k, n in (exact or {}).items():
+        check(counts.get(k, 0) == n,
+              f"{name}: {k} launched {counts.get(k, 0)} times, not {n}")
     log(json.dumps(out))
     return counts
 
@@ -683,15 +900,25 @@ def main() -> int:
     # the path first: its first use of the card runs the device probe
     # (K1), as in any fresh process
     totals = {}
+    flash = "flash_attention"
     path = (("plan", lambda c: phase_plan("cuda", launch_counts=c),
-             ("probe_double", "fused_mlp_plan")),
+             ("probe_double", "fused_mlp_plan"), None),
             ("whole_fleet", lambda c: phase_fleet("cuda", launch_counts=c),
-             ("fused_mlp_scores", "plan_weights")),
+             ("fused_mlp_scores", "plan_weights"), None),
             ("resident", lambda c: phase_resident("cuda", launch_counts=c),
-             WAVE_KERNELS))
-    for name, fn, expect in path:
+             WAVE_KERNELS, None),
+            ("temporal_plan",
+             lambda c: phase_temporal_plan("cuda", launch_counts=c),
+             (), {flash: 0}),
+            ("temporal_eval",
+             lambda c: phase_temporal_eval("cuda", launch_counts=c),
+             (flash,), {flash: EVAL_BATCHES}),
+            ("temporal_seq",
+             lambda c: phase_temporal_seq("cuda", launch_counts=c),
+             (flash,), {flash: 1}))
+    for name, fn, expect, exact in path:
         t0 = time.perf_counter()
-        counts = run_path_phase(name, fn, expect, build)
+        counts = run_path_phase(name, fn, expect, build, exact)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         log(json.dumps({"phase": name + "_wall",
@@ -699,6 +926,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = phase_kernels()
+    log(json.dumps(phase_flash_crossover()))
     log(json.dumps({"phase": "kernels",
                     "seconds": time.perf_counter() - t0}))
 

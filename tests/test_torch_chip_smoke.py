@@ -30,3 +30,29 @@ def test_resident_phase_rehearses_on_cpu():
     assert all(w["rescored_groups"] > 0 for w in out["waves"])
     assert not any(out["launches"].values())
     assert not out["churn_launches"] and not out["verify_launches"]
+
+
+def test_temporal_plan_phase_rehearses_on_cpu():
+    build.reset_launch_counts()
+    out = chip_smoke.phase_temporal_plan(
+        "cpu", launch_counts=build.launch_counts, groups=3, endpoints=5,
+        window=16)
+    assert out["device"] == "cpu" and out["max_abs_err_vs_cpu"] == 0
+    assert (out["groups"], out["endpoints"]) == (3, 5)
+    assert not any(out["launches"].values())
+
+
+def test_temporal_eval_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_temporal_eval("cpu", batches=2, groups=3,
+                                         endpoints=4, hidden=32)
+    assert out["device"] == "cpu" and out["batches"] == 2
+    assert out["mean_loss_rel_err_vs_cpu"] == 0
+    assert out["plan_l1_err_vs_cpu"] == 0
+
+
+def test_temporal_seq_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_temporal_seq("cpu", steps=130, groups=2,
+                                        endpoints=3, embed_dim=32,
+                                        hidden_dim=32)
+    assert out["streams"] == 6
+    assert out["max_abs_err_vs_reference"] <= chip_smoke.SEQ_TOL

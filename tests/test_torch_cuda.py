@@ -17,8 +17,17 @@ import torch
 from aws_global_accelerator_controller_tpu_torch import device as tdevice
 from aws_global_accelerator_controller_tpu_torch import parity
 from aws_global_accelerator_controller_tpu_torch.kernels import build
+from aws_global_accelerator_controller_tpu_torch.models.temporal import (
+    TemporalTrafficModel,
+    synthetic_window,
+)
 from aws_global_accelerator_controller_tpu_torch.models.traffic import (
     TrafficPolicyModel,
+)
+from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
+    BLOCK_K,
+    flash_attention,
+    flash_attention_plain,
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     dense_scores,
@@ -182,3 +191,77 @@ def test_resident_waves_on_card_bitmatch_full_repack(cuda, params):
     assert not planner.plan_wave().device_call
     assert build.launch_counts() == counts
     assert planner.verify_full_repack()["match"] is True
+
+
+def _qkv(cuda, T, S, D, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(T, S, D, device=cuda, generator=g)
+            .to(torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.parametrize("T,S,D", [(1, 3, 32), (72, 5, 16), (130, 4, 128),
+                                   (200, 2, 40), (64, 1024, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain_version(cuda, T, S, D,
+                                                      causal):
+    """K6a against its plain version at the kernel's K block: padded T
+    (72, 130, 200), T = 1, D padded in the kernel (40 -> 64), and the
+    eval shape.  Tolerance: 2 bf16 ulps of the magnitude averaged."""
+    q, k, v = _qkv(cuda, T, S, D, T + S + D)
+    build.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert build.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal, BLOCK_K)
+    mag = flash_attention_plain(q, k, v.abs(), causal, BLOCK_K)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert parity.attention_close(got.float().cpu().numpy(),
+                                  want.float().cpu().numpy(),
+                                  mag.float().cpu().numpy())
+    if T == 1:
+        # one key: the output is v itself
+        assert torch.equal(got, v)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(cuda, 64, 2, 16, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q.float(), k, v)
+    wide = torch.randn(64, 4, 16, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(wide[:, ::2], k, v)
+    with pytest.raises(ValueError, match="D <="):
+        flash_attention(*_qkv(cuda, 8, 2, 136, 1))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(*_qkv(cuda, 8, 2, 12, 1))
+    with pytest.raises(ValueError, match="one"):
+        flash_attention(q, k[:32], v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+
+
+def test_temporal_seq_on_card_matches_cpu_and_reference(cuda):
+    kw = dict(embed_dim=32, hidden_dim=64, supervision="sequence")
+    model = TemporalTrafficModel(**kw)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device="cpu")
+    window, batch = synthetic_window(np.random.default_rng(0), steps=130,
+                                     groups=4, endpoints=8, per_step=True,
+                                     device="cpu")
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    build.reset_launch_counts()
+    got = model.scores_seq(on_card, window.to(cuda)).cpu()
+    assert build.launch_counts()["flash_attention"] == 1
+    ref = TemporalTrafficModel(attention="reference", **kw).scores_seq(
+        on_card, window.to(cuda)).cpu()
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-2,
+                               atol=2e-2)
+    cpu = model.scores_seq(params, window)
+    np.testing.assert_allclose(got.numpy(), cpu.numpy(), rtol=2e-2,
+                               atol=2e-2)
+    loss_card = model.loss(on_card, window.to(cuda), batch._replace(
+        mask=batch.mask.to(cuda), target=batch.target.to(cuda)))
+    loss_cpu = model.loss(params, window, batch)
+    np.testing.assert_allclose(float(loss_card), float(loss_cpu),
+                               rtol=1e-3)

@@ -29,9 +29,16 @@ from aws_global_accelerator_controller_tpu_torch.kernels import build
 from aws_global_accelerator_controller_tpu_torch.models.convert import (
     params_from_jax,
 )
+from aws_global_accelerator_controller_tpu_torch.models.temporal import (
+    TemporalTrafficModel,
+    synthetic_window,
+)
 from aws_global_accelerator_controller_tpu_torch.models.traffic import (
     TrafficPolicyModel,
     synthetic_batch,
+)
+from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
+    flash_attention,
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     forward_cuda,
@@ -119,6 +126,12 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(DeviceError):
         main(["plan", "--groups", "2", "--endpoints", "2"])
     with pytest.raises(DeviceError):
+        TemporalTrafficModel().init_params(torch.Generator())
+    with pytest.raises(DeviceError):
+        synthetic_window(np.random.default_rng(0), 2, 2, 2)
+    with pytest.raises(DeviceError):
+        main(["eval", "--batches", "1"])
+    with pytest.raises(DeviceError):
         tdevice.resolve_device("mps")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
 
@@ -143,6 +156,9 @@ def test_kernel_wrappers_refuse_other_devices():
                    torch.empty((1, 2), dtype=torch.int32, **meta))
     with pytest.raises(ValueError, match="CUDA"):
         tdevice.probe_double(torch.empty((8, 128), **meta))
+    qkv = torch.empty((64, 2, 16), dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(qkv, qkv, qkv)
     with pytest.raises(ValueError):
         plan_weights_cuda(torch.zeros((2, 2)), m)   # mixed devices
 
@@ -160,9 +176,16 @@ def test_cpu_calls_build_and_launch_nothing():
                torch.tensor([1], dtype=torch.int32),
                torch.ones((1, 2), dtype=torch.int32))
     tdevice.probe_double(torch.ones(8, 128))
+    tmodel = TemporalTrafficModel(embed_dim=16, hidden_dim=16,
+                                  supervision="sequence")
+    window, wbatch = synthetic_window(np.random.default_rng(0), 64, 2, 2,
+                                      per_step=True, device="cpu")
+    tmodel.loss(tmodel.init_params(torch.Generator().manual_seed(0),
+                                   device="cpu"), window, wbatch)
     counts = build.launch_counts()
     assert set(counts) >= {"probe_double", "plan_weights", "fused_mlp_plan",
-                           "fused_mlp_scores", "row_splice"}
+                           "fused_mlp_scores", "row_splice",
+                           "flash_attention"}
     assert not any(counts.values())
     if not torch.cuda.is_available():
         assert build._library is None
