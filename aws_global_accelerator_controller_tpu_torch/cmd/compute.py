@@ -1,4 +1,4 @@
-"""The port's compute commands: ``plan`` and ``eval``.
+"""The port's compute commands: ``plan``, ``eval`` and ``train``.
 
 ``python -m aws_global_accelerator_controller_tpu_torch plan [--model
 mlp|temporal] --groups N --endpoints E --hidden H [--window T] --seed S
@@ -17,15 +17,27 @@ target, the uniform plan's L1), ``device`` in place of ``rung``.  Under
 ``--model temporal --supervision sequence`` the loss runs the flash
 kernel K6a once per batch.
 
+``python -m aws_global_accelerator_controller_tpu_torch train [--model
+mlp|temporal] [--supervision last|sequence] [--remat] [--optimizer
+adam|flat_adam] [--guard] [--eval-every N] --steps N ...`` fits freshly
+initialised params on synthetic batches (the JAX package's ``train``
+loop, ``compute.py:621-781``, without its checkpoints) and prints the
+reference's keys (``step``, ``model``, ``loss``, ``preempted`` when a
+SIGTERM or SIGINT stopped it), ``device`` in place of ``backend`` and
+``rung``.  A loss line goes to stderr every ``steps // 10`` steps.
+Under ``--model temporal --supervision sequence`` a step runs the flash
+kernels K6b, K7 and K8 once each.
+
 The params come from the port's own generator (``torch.Generator``
 seeded with ``--seed``) and the telemetry from numpy, so the numbers for
 a seed differ from the JAX package's.  Checkpoints (``--ckpt``) wait for
-the training slice.
+a checkpointer of the port's own.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 from typing import Optional, Sequence
 
@@ -35,9 +47,16 @@ import torch
 from ..device import resolve_device
 from ..models.temporal import TemporalTrafficModel, synthetic_window
 from ..models.traffic import TrafficPolicyModel, synthetic_batch
+from ..signals import ScopedStopSignal
 
 #: offset of the held-out batches' numpy stream from the seed's
 EVAL_STREAM = 10_000
+#: offset of the training batches' stream: (seed, step) alone would meet
+#: the held-out stream at step EVAL_STREAM (numpy's seed sequence pads
+#: its entropy with zeros, so (s, 10000) and (s, 10000, 0) are one seed)
+TRAIN_STREAM = 20_000
+#: restores after a non-finite loss before ``--guard`` gives up
+MAX_RESTORES = 5
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,6 +109,51 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Seed of the params; eval batches use a numpy "
                          "stream disjoint from it.")
     ev.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'.")
+
+    tr = sub.add_parser(
+        "train", help="Train fresh params on synthetic fleets (JSON out)")
+    tr.add_argument("--model", choices=("mlp", "temporal"), default="mlp",
+                    help="Model family.")
+    tr.add_argument("--supervision", choices=("last", "sequence"),
+                    default="last",
+                    help="Temporal objective: last = final-step scores "
+                         "(O(T) last-query attention, no kernel); sequence "
+                         "= every step (the flash kernels K6b, K7, K8).")
+    tr.add_argument("--remat", action="store_true",
+                    help="Temporal sequence supervision: recompute the "
+                         "head's [T, S, H] hidden in the backward instead "
+                         "of keeping it (same numbers, less memory).")
+    tr.add_argument("--optimizer", choices=("adam", "flat_adam"),
+                    default="adam",
+                    help="adam = per-param state (optax.adam's "
+                         "arithmetic); flat_adam = one raveled f32 vector.")
+    tr.add_argument("--guard", action="store_true",
+                    help="Check every loss; on a non-finite one discard "
+                         "the step, re-initialise the params, go on with "
+                         f"the next batch, and abort after {MAX_RESTORES} "
+                         "restores.  The reported step counts applied "
+                         "updates.")
+    tr.add_argument("--window", type=int, default=64,
+                    help="Telemetry window length (temporal); the default "
+                         "reaches the flash kernels (FLASH_MIN_WINDOW).")
+    tr.add_argument("--steps", type=int, default=100,
+                    help="Optimisation steps to run.")
+    tr.add_argument("--eval-every", type=int, default=0, dest="eval_every",
+                    help="Log the loss of one fixed held-out batch every N "
+                         "applied steps (0 disables).")
+    tr.add_argument("--groups", type=int, default=256,
+                    help="Endpoint groups per synthetic batch.")
+    tr.add_argument("--endpoints", type=int, default=32,
+                    help="Endpoints per group.")
+    tr.add_argument("--hidden", type=int, default=128,
+                    help="Model hidden width.")
+    tr.add_argument("--lr", type=float, default=1e-3,
+                    help="Adam learning rate.")
+    tr.add_argument("--seed", type=int, default=0,
+                    help="Seed of the params and of the batches' numpy "
+                         "streams.")
+    tr.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'.")
     return parser
 
@@ -187,6 +251,77 @@ def evaluate(args: argparse.Namespace) -> dict:
     }
 
 
+def train(args: argparse.Namespace) -> dict:
+    """The ``train`` command's result (what it prints)."""
+    dev = resolve_device(args.device)
+    temporal = args.model == "temporal"
+    if temporal:
+        model = TemporalTrafficModel(
+            hidden_dim=args.hidden, learning_rate=args.lr,
+            supervision=args.supervision, remat=args.remat,
+            optimizer=args.optimizer)
+    else:
+        model = TrafficPolicyModel(hidden_dim=args.hidden,
+                                   learning_rate=args.lr,
+                                   optimizer=args.optimizer)
+
+    def fresh():
+        params = model.init_params(torch.Generator().manual_seed(args.seed),
+                                   device=dev)
+        return params, model.init_opt_state(params)
+
+    def data(rng):
+        """The loss's data arguments: (window, batch) or (batch,)."""
+        if temporal:
+            return synthetic_window(
+                rng, steps=args.window, groups=args.groups,
+                endpoints=args.endpoints,
+                per_step=args.supervision == "sequence", device=dev)
+        return (synthetic_batch(rng, groups=args.groups,
+                                endpoints=args.endpoints, device=dev),)
+
+    def log(msg):
+        print(msg, file=sys.stderr, flush=True)
+
+    params, opt_state = fresh()
+    eval_data = (data(np.random.default_rng((args.seed, EVAL_STREAM, 0)))
+                 if args.eval_every > 0 else None)
+    restores = step = 0
+    loss = None          # the last applied step's loss, never non-finite
+    preempted = False
+    with ScopedStopSignal() as stop:
+        for batch_idx in range(args.steps):
+            if stop.is_set():
+                preempted = True
+                log(f"stop signal: exiting at step {step}")
+                break
+            rng = np.random.default_rng((args.seed, TRAIN_STREAM, batch_idx))
+            new_params, new_opt, new_loss = model.train_step(
+                params, opt_state, *data(rng))
+            if args.guard and not math.isfinite(float(new_loss)):
+                restores += 1
+                log(f"non-finite loss on batch {batch_idx + 1} (restore "
+                    f"{restores}/{MAX_RESTORES})")
+                if restores > MAX_RESTORES:
+                    raise SystemExit(
+                        f"training diverged: {MAX_RESTORES} restores "
+                        f"exhausted at batch {batch_idx + 1}")
+                step = 0
+                params, opt_state = fresh()
+                continue
+            params, opt_state, loss = new_params, new_opt, new_loss
+            step += 1
+            if eval_data is not None and step % args.eval_every == 0:
+                with torch.no_grad():
+                    held_out = float(model.loss(params, *eval_data))
+                log(f"step {step} eval_loss {held_out:.5f}")
+            if (batch_idx + 1) % max(1, args.steps // 10) == 0:
+                log(f"step {step} loss {float(loss):.5f}")
+    return {"step": step, "model": args.model,
+            "loss": float(loss) if loss is not None else None,
+            "device": str(dev), **({"preempted": True} if preempted else {})}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -194,6 +329,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if args.model == "temporal" and args.serve != "auto":
             parser.error("--serve applies to --model mlp only")
         out = plan(args)
+    elif args.command == "train":
+        out = train(args)
     else:
         out = evaluate(args)
     json.dump(out, sys.stdout)

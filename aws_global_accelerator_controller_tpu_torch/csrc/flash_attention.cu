@@ -1,27 +1,38 @@
-// Kernel K6a: causal flash-attention forward, q, k, v [T, S, D] bf16 ->
-// o [T, S, D] bf16, the S axis being independent heads (the temporal
-// model's endpoint streams).
+// Kernels K6a and K6b: causal flash-attention forward, q, k, v [T, S, D]
+// bf16 -> o [T, S, D] bf16, the S axis being independent heads (the
+// temporal model's endpoint streams).
 //
-// Replaces the JAX package's ops/pallas_attention.py::_kernel (:287),
-// launched by _flash (:359, pallas_call at :379): the forward of
-// flash_attention without the (m, l) stats (_stats_kernel, K6b, is not
-// this kernel).  Same arithmetic (the contract of _prescale :346 and
-// _attend_step :197): q pre-scaled by D^-0.5 with one rounding to bf16;
-// s = q'.k^T from bf16 operands with f32 sums; masked scores -1e30
-// (causal by global position, keys past T); per K block
-// m_new = max(m, rowmax s), p = exp(s - m_new) in f32,
-// l = l * exp(m - m_new) + sum(p), acc = acc * exp(m - m_new) + bf16(p).v
-// with f32 sums; o = acc / l rounded to bf16.  p is rounded against the
-// running max, so the K block (64 keys here) is part of the result at the
-// last-ulp level; the plain version takes it as block_k.
+// K6a replaces the JAX package's ops/pallas_attention.py::_kernel (:287),
+// launched by _flash (:359, pallas_call at :379): the forward alone, what
+// inference runs.  K6b replaces _stats_kernel (:301) with normalize=True,
+// launched by _flash_stats_padded (:816, pallas_call at :845) from the
+// flash VJP's forward (_flash_fwd_padded :800): the same forward, which
+// also writes the softmax stats the backward rebuilds p from, m (the row
+// max) and l (the row sum), f32, one value per (head, row) in [S, T]
+// layout (a 64-row block of one head is one contiguous run), and divides
+// o by max(l, 1).  Every live row attends its key 0, so l >= 1 and K6b's
+// o is K6a's bit for bit.  Padded rows are never written.
+//
+// Same arithmetic (the contract of _prescale :346 and _attend_step :197):
+// q pre-scaled by D^-0.5 with one rounding to bf16; s = q'.k^T from bf16
+// operands with f32 sums; masked scores -1e30 (causal by global
+// position, keys past T); per K block m_new = max(m, rowmax s),
+// p = exp(s - m_new) in f32, l = l * exp(m - m_new) + sum(p),
+// acc = acc * exp(m - m_new) + bf16(p).v with f32 sums; o = acc / l
+// rounded to bf16.  p is rounded against the running max, so the K block
+// (64 keys here) is part of the result at the last-ulp level, and so is
+// l; the plain versions take it as block_k.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16).  Causal work is
 // 4 D flops for each of the T (T + 1) / 2 live (query, key) pairs of a
-// head, against 8 T S D bytes of q, k, v and o:
+// head, against 8 T S D bytes of q, k, v and o (K6b adds 8 T S bytes of
+// m and l):
 // - T = 64, S = 1024, D = 32 (the eval command's defaults): 16.8 MB,
 //   0.27 GFLOP, bound by bytes at 5.0 us; 8 flops a byte.
 // - T = 2048, S = 128, D = 128: 268 MB, 137 GFLOP, bound by operations
 //   at 0.139 ms; 512 flops a byte, above the card's ridge (~295).
+// - T = 64, S = 8192, D = 32 (the train command's defaults, K6b): 138 MB,
+//   bound by bytes at 41 us.
 //
 // Design.  The TPU kernel pads D to 128 lanes and T to (8, 128) tiles,
 // transposes [T, S, D] to head-major twice around the call, and walks a
@@ -39,75 +50,19 @@
 // memory.  K and V tiles stage through shared memory with plain 16-byte
 // loads (no cp.async, TMA or wgmma: that is the faster kernel's work).
 // q blocks launch longest first to shorten the causal tail.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;              // query rows and keys per tile
-constexpr int kWarps = kBlock / 16;     // each warp owns 16 query rows
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
+using namespace agac_flash;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a . b for one 16x8x16 tile: bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [t0, t0 + kBlock) of head s from [T, S, D] into a
-// [kBlock, kDPad] tile (row stride kStride), zero past T and past D.
-// With kScale, each value is multiplied by scale and rounded to bf16
-// (the q pre-scaling).
-template <int kDPad, int kStride, bool kScale>
-__device__ __forceinline__ void load_tile(
-    __nv_bfloat16* tile, const __nv_bfloat16* __restrict__ src, int t0,
-    int T, int S, int D, int s, float scale) {
-  constexpr int kChunks = kDPad / 8;    // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t0 + r < T && c < D) {
-      const long long off =
-          (static_cast<long long>(t0 + r) * S + s) * D + c;
-      val = *reinterpret_cast<const uint4*>(src + off);
-      if (kScale) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(tile + r * kStride + c) = val;
-  }
-}
-
-template <int kDPad>
+// kStats: K6b (write m and l, divide by max(l, 1)); else K6a.
+template <int kDPad, bool kStats>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int T, int S, int D, float scale, int causal) {
+    float* __restrict__ m_out, float* __restrict__ l_out, int T, int S,
+    int D, float scale, int causal) {
   constexpr int kStride = kDPad + 8;    // bf16 per smem row (bank skew)
   constexpr int kSteps = kDPad / 16;    // k-steps of q.k^T over D
   constexpr int kDTiles = kDPad / 8;    // n-tiles of p.v over D
@@ -129,17 +84,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   load_tile<kDPad, kStride, true>(ks, q, q0, T, S, D, s, scale);
   __syncthreads();
   uint32_t qa[kSteps][4];
-  {
-    const __nv_bfloat16* r0 = ks + (warp * 16 + g) * kStride + 2 * tq;
-    const __nv_bfloat16* r1 = r0 + 8 * kStride;
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      qa[kk][0] = load_pair(r0 + kk * 16);
-      qa[kk][1] = load_pair(r1 + kk * 16);
-      qa[kk][2] = load_pair(r0 + kk * 16 + 8);
-      qa[kk][3] = load_pair(r1 + kk * 16 + 8);
-    }
-  }
+  for (int kk = 0; kk < kSteps; ++kk)
+    a_frag(qa[kk], ks, kStride, warp * 16, kk);
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
@@ -162,11 +109,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int nt = 0; nt < kKTiles; ++nt) {
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (nt * 8 + g) * kStride + 2 * tq;
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk)
-        mma_bf16(sc[nt], qa[kk], load_pair(kr + kk * 16),
-                 load_pair(kr + kk * 16 + 8));
+        mma_nk(sc[nt], qa[kk], ks, kStride, nt * 8, kk);
     }
 
     // mask, then the online softmax of _attend_step._fold
@@ -216,60 +161,81 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     // are the A fragment of k-step kk
 #pragma unroll
     for (int kk = 0; kk < kBlock / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const __nv_bfloat16* v0 = vs + (kk * 16 + 2 * tq) * kStride + g;
+      uint32_t pa[4];
+      pack_acc(pa, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
-      for (int nt = 0; nt < kDTiles; ++nt) {
-        const __nv_bfloat16* vc = v0 + nt * 8;
-        mma_bf16(acc[nt], pa, pack_raw(vc[0], vc[kStride]),
-                 pack_raw(vc[8 * kStride], vc[9 * kStride]));
-      }
+      for (int nt = 0; nt < kDTiles; ++nt)
+        mma_kn(acc[nt], pa, vs, kStride, nt * 8, kk);
     }
   }
 
-  // o = acc / l: every live row attended key 0, so l > 0
+  // o = acc / l: every live row attended key 0, so l > 0 (K6b divides
+  // by max(l, 1), as _stats_kernel does, which is the same number)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r ? row1 : row0;
     if (row >= T) continue;
+    const float den = kStats ? fmaxf(l[r], 1.f) : l[r];
+    if (kStats && tq == 0) {    // the four lanes of a row hold one m, l
+      m_out[static_cast<long long>(s) * T + row] = m[r];
+      l_out[static_cast<long long>(s) * T + row] = l[r];
+    }
     __nv_bfloat16* orow = o + (static_cast<long long>(row) * S + s) * D;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
       const int d = nt * 8 + 2 * tq;
       if (d < D)
         *reinterpret_cast<uint32_t*>(orow + d) =
-            pack_bf16(acc[nt][2 * r] / l[r], acc[nt][2 * r + 1] / l[r]);
+            pack_bf16(acc[nt][2 * r] / den, acc[nt][2 * r + 1] / den);
     }
   }
 }
 
-template <int kDPad>
-int launch(const void* q, const void* k, const void* v, void* o, int T,
-           int S, int D, float scale, int causal, cudaStream_t stream) {
+template <int kDPad, bool kStats>
+int launch(const void* q, const void* k, const void* v, void* o, void* m,
+           void* l, int T, int S, int D, float scale, int causal,
+           cudaStream_t stream) {
   const dim3 grid(S, (T + kBlock - 1) / kBlock);
-  flash_fwd_kernel<kDPad><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<kDPad, kStats><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      T, S, D, scale, causal);
+      static_cast<float*>(m), static_cast<float*>(l), T, S, D, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStats>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* m,
+             void* l, int T, int S, int D, float scale, int causal,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 16)
+    return launch<16, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
+  if (D <= 32)
+    return launch<32, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
+  if (D <= 64)
+    return launch<64, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
+  return launch<128, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
 }
 
 }  // namespace
 
 // The wrapper (ops/cuda_attention.py) checks: q, k, v, o contiguous bf16
-// [T, S, D] on one device, 16-byte aligned, 8 <= D <= 128 with D % 8 == 0.
+// [T, S, D] on one device, 16-byte aligned, 8 <= D <= 128 with D % 8 == 0;
+// m and l contiguous f32 [S, T].
 extern "C" int agac_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int T, int S,
                                     int D, float scale, int causal,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch<16>(q, k, v, o, T, S, D, scale, causal, st);
-  if (D <= 32) return launch<32>(q, k, v, o, T, S, D, scale, causal, st);
-  if (D <= 64) return launch<64>(q, k, v, o, T, S, D, scale, causal, st);
-  return launch<128>(q, k, v, o, T, S, D, scale, causal, st);
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, T, S, D, scale,
+                         causal, stream);
+}
+
+extern "C" int agac_flash_attention_stats(const void* q, const void* k,
+                                          const void* v, void* o, void* m,
+                                          void* l, int T, int S, int D,
+                                          float scale, int causal,
+                                          void* stream) {
+  return dispatch<true>(q, k, v, o, m, l, T, S, D, scale, causal, stream);
 }

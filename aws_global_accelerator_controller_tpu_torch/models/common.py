@@ -1,13 +1,35 @@
-"""The loss the model families share (the JAX package's
-``models/common.py::masked_ce_loss``, ``:16-28``).
+"""Training machinery the model families share: the masked cross-entropy,
+the two Adam optimizers and the train step (the JAX package's
+``models/common.py``).
 
-The optimizer and the train step wait for the training slice.
+The optimizers are plain functions on tensors under ``torch.no_grad()``
+and reproduce the reference's arithmetic:
+
+- :func:`adam` is ``optax.adam`` (optax 0.2.6, ``scale_by_adam`` then
+  ``scale_by_learning_rate``): moments in the params' dtype (bf16 here),
+  each update rounded to it, the Python constants rounded to it first as
+  JAX's weak types are; the bias correction 1 - b**count computed in f32
+  and cast to the moment's dtype before the division; m / (sqrt(v) +
+  eps) scaled by -lr; and ``optax.apply_updates``, (p + u) in p's dtype.
+- :func:`flat_adam` is the reference's ``flat_adam`` (``:31-92``): f32
+  moments over one vector raveled in ``ravel_pytree``'s order (dict keys
+  sorted), the step cast to the grads' dtype.
+
+The scalar constants are computed on the host in float32 (numpy), and
+divisions divide by a tensor, never by a Python number (the CUDA kernel
+for a scalar divisor multiplies by its reciprocal, which is not the
+reference's division).
 """
 from __future__ import annotations
 
+from typing import Callable, Dict, NamedTuple
+
+import numpy as np
 import torch
 
 from ..ops.weights import masked_softmax
+
+Params = Dict[str, torch.Tensor]
 
 
 def masked_ce_loss(scores: torch.Tensor, mask: torch.Tensor,
@@ -24,3 +46,160 @@ def masked_ce_loss(scores: torch.Tensor, mask: torch.Tensor,
     valid = mask.any(dim=-1).expand_as(ce)
     return (torch.where(valid, ce, 0.0).sum(dim=-1)
             / valid.sum(dim=-1).clamp_min(1))
+
+
+class Optimizer(NamedTuple):
+    """An optax-style pair: ``init(params) -> state`` and
+    ``update(grads, state, params) -> (updates, state)``."""
+    init: Callable
+    update: Callable
+
+
+class AdamState(NamedTuple):
+    count: int
+    mu: Params      # first moment, the params' dtype
+    nu: Params      # second moment, the params' dtype
+
+
+class FlatAdamState(NamedTuple):
+    count: int
+    mu: torch.Tensor      # first moment, f32, one raveled vector
+    nu: torch.Tensor      # second moment, f32, one raveled vector
+
+
+def _const(x: float, like: torch.Tensor) -> float:
+    """The Python constant ``x`` as a number of ``like``'s dtype (JAX
+    converts a weak-typed scalar to the array's dtype before the op)."""
+    return float(torch.tensor(x, dtype=like.dtype))
+
+
+def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d as a true division by a 0-dim tensor on x's device, d
+    rounded to x's dtype first (the reference casts its bias correction
+    to the moment's dtype)."""
+    return x / x.new_full((), d)
+
+
+def _bias(decay: float, count: int) -> float:
+    """1 - decay**count in float32."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    """``optax.adam``: per-param moments in the params' dtype."""
+
+    def init(params: Params) -> AdamState:
+        def zeros():
+            return {k: torch.zeros_like(p) for k, p in params.items()}
+        return AdamState(0, zeros(), zeros())
+
+    @torch.no_grad()
+    def update(grads: Params, state: AdamState, params=None):
+        count = state.count + 1
+        c1, c2 = _bias(b1, count), _bias(b2, count)
+        mu, nu, updates = {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = (_const(1 - b1, g) * g) + (_const(b1, g) * state.mu[k])
+            nu[k] = (_const(1 - b2, g) * (g * g)) + (_const(b2, g)
+                                                     * state.nu[k])
+            m_hat = _divide(mu[k], c1)
+            v_hat = _divide(nu[k], c2)
+            u = m_hat / (torch.sqrt(v_hat) + _const(eps, g))
+            updates[k] = _const(-learning_rate, g) * u
+        return updates, AdamState(count, mu, nu)
+
+    return Optimizer(init, update)
+
+
+def ravel(tree: Params) -> torch.Tensor:
+    """One vector of the values of ``tree``, keys sorted (the order of
+    ``jax.flatten_util.ravel_pytree`` on a dict)."""
+    return torch.cat([tree[k].reshape(-1) for k in sorted(tree)])
+
+
+def unravel(flat: torch.Tensor, like: Params) -> Params:
+    """The inverse of :func:`ravel` onto the shapes of ``like``."""
+    out, i = {}, 0
+    for k in sorted(like):
+        n = like[k].numel()
+        out[k] = flat[i:i + n].reshape(like[k].shape)
+        i += n
+    return out
+
+
+def flat_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8) -> Optimizer:
+    """Adam over one raveled f32 vector (the reference's ``flat_adam``)."""
+
+    def init(params: Params) -> FlatAdamState:
+        flat = ravel(params)
+        return FlatAdamState(0, torch.zeros(flat.shape, device=flat.device),
+                             torch.zeros(flat.shape, device=flat.device))
+
+    @torch.no_grad()
+    def update(grads: Params, state: FlatAdamState, params=None):
+        flat_g = ravel(grads)
+        g = flat_g.float()
+        count = state.count + 1
+        mu = b1 * state.mu + (1.0 - b1) * g
+        nu = b2 * state.nu + (1.0 - b2) * (g * g)
+        mu_hat = _divide(mu, _bias(b1, count))
+        nu_hat = _divide(nu, _bias(b2, count))
+        step = -learning_rate * mu_hat / (torch.sqrt(nu_hat) + eps)
+        return (unravel(step.to(flat_g.dtype), grads),
+                FlatAdamState(count, mu, nu))
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, learning_rate: float) -> Optimizer:
+    """``"adam"`` (per-param state) or ``"flat_adam"`` (one raveled
+    vector), as the reference's ``make_optimizer``."""
+    if name == "flat_adam":
+        return flat_adam(learning_rate)
+    if name == "adam":
+        return adam(learning_rate)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+@torch.no_grad()
+def apply_updates(params: Params, updates: Params) -> Params:
+    """``optax.apply_updates``: (p + u) in p's dtype."""
+    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+
+
+def value_and_grad(loss_fn: Callable, params: Params, *data):
+    """(loss at ``params``, its gradient with respect to every param):
+    zeros for a param the loss does not reach, as ``jax.grad`` gives."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    with torch.enable_grad():
+        loss = loss_fn(leaves, *data)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(params.items(), grads)}
+
+
+class TrainableModel:
+    """Optimizer plumbing over a subclass's ``loss(params, *data)``; the
+    subclass sets ``self.optimizer`` (:func:`make_optimizer`)."""
+
+    optimizer: Optimizer
+
+    def loss(self, params: Params, *data) -> torch.Tensor:
+        raise NotImplementedError
+
+    def init_opt_state(self, params: Params):
+        return self.optimizer.init(params)
+
+    def train_step_with(self, loss_fn: Callable, params: Params, opt_state,
+                        *data):
+        """(new params, new optimizer state, loss at ``params``): the one
+        optimizer-update implementation every family shares."""
+        loss, grads = value_and_grad(loss_fn, params, *data)
+        updates, opt_state = self.optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    def train_step(self, params: Params, opt_state, *data):
+        return self.train_step_with(self.loss, params, opt_state, *data)

@@ -1,20 +1,23 @@
 """Temporal traffic model: attention over telemetry history -> weights.
 
-The counterpart of the JAX package's ``models/temporal.py``, forward
-paths only.  The model reads a telemetry window [T, G, E, F]; every
-endpoint attends causally over its own history, so the S = G * E
-endpoint streams are the attention heads: q = k = v = [T, S, D].
+The counterpart of the JAX package's ``models/temporal.py``.  The model
+reads a telemetry window [T, G, E, F]; every endpoint attends causally
+over its own history, so the S = G * E endpoint streams are the
+attention heads: q = k = v = [T, S, D].
 
 - ``forward`` (serving, the ``plan`` command) plans from the last step
   through ``scores_last``: O(T) last-query attention, no kernel, as in
   the reference.
-- ``scores_seq`` (sequence supervision, ``eval --supervision sequence``)
-  attends every step: kernel K6a (``ops.cuda_attention.flash_attention``)
-  when T >= ``FLASH_MIN_WINDOW``, else the dense reference.
+- ``scores_seq`` (sequence supervision, ``eval`` and ``train
+  --supervision sequence``) attends every step through
+  ``ops.cuda_attention.flash_attention`` when T >= ``FLASH_MIN_WINDOW``,
+  else the dense reference: kernel K6a for a forward alone; under
+  autograd (``train_step``) kernel K6b, and K7 and K8 in the backward.
 
 Matmuls take bf16 operands with f32 sums and round to bf16, as XLA's
-bf16 dots do.  The training step, the fused score head (K10/K11) and the
-sharded planner wait for later slices.
+bf16 dots do, and differentiate as those dots do.  The fused score head
+(K10/K11), the fused one-sweep backward (K9) that ``attention_chunk``
+exists for in training, and the sharded planner wait for later slices.
 """
 from __future__ import annotations
 
@@ -23,13 +26,14 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import Device, resolve_device
 from ..ops.cuda_attention import flash_attention
-from ..ops.cuda_mlp import bf16_linear, bf16_matmul
+from ..ops.cuda_mlp import bf16_linear, bf16_matmul, relu
 from ..ops.weights import plan_weights
 from ..parallel.ring_attention import attention_reference
-from .common import masked_ce_loss
+from .common import TrainableModel, make_optimizer, masked_ce_loss
 from .traffic import Batch
 
 Params = Dict[str, torch.Tensor]
@@ -39,25 +43,31 @@ Params = Dict[str, torch.Tensor]
 FLASH_MIN_WINDOW = 64
 
 
-class TemporalTrafficModel:
+class TemporalTrafficModel(TrainableModel):
     """Causal self-attention per endpoint stream + MLP head.
 
     Arguments as in the JAX model.  ``attention``: ``flash`` and
-    ``flash_always`` both take kernel K6a for T >= ``FLASH_MIN_WINDOW``
-    (on CPU tensors its plain version; the card is this port's kernel
-    device, so there is no backend gate), ``reference`` the dense
-    oracle.  ``supervision``: ``last`` scores the final step, ``sequence``
-    every step.  ``head``: only ``reference`` (dense) runs; the fused
-    head is kernel K10, which is not ported.  ``remat`` is stored and has
-    no effect without a gradient.  ``attention_chunk`` > 0 splits the
-    streams into chunks of at most that many heads, one kernel call each
-    (exact: heads are independent).
+    ``flash_always`` both take the flash kernels for T >=
+    ``FLASH_MIN_WINDOW`` (on CPU tensors their plain versions; the card
+    is this port's kernel device, so there is no backend gate),
+    ``reference`` the dense oracle.  ``supervision``: ``last`` scores the
+    final step, ``sequence`` every step.  ``head``: only ``reference``
+    (dense) runs; the fused head is kernel K10, which is not ported.
+    ``remat`` recomputes the dense head in the backward of a sequence
+    loss (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``): the same numbers, less memory.
+    ``attention_chunk`` > 0 splits the streams into chunks of at most
+    that many heads, one kernel call each (exact: heads are
+    independent); ``train_step`` refuses it, since its purpose there is
+    the fused backward K9.  ``optimizer``: ``adam`` or ``flat_adam``
+    (``models.common.make_optimizer``).
     """
 
     def __init__(self, feature_dim: int = 8, embed_dim: int = 32,
-                 hidden_dim: int = 64, attention: str = "flash",
-                 supervision: str = "last", remat: bool = False,
-                 head: str = "reference", attention_chunk: int = 0):
+                 hidden_dim: int = 64, learning_rate: float = 1e-3,
+                 attention: str = "flash", supervision: str = "last",
+                 remat: bool = False, head: str = "reference",
+                 attention_chunk: int = 0, optimizer: str = "adam"):
         if attention not in ("flash", "flash_always", "reference"):
             raise ValueError(f"unknown attention impl {attention!r}")
         if supervision not in ("last", "sequence"):
@@ -78,6 +88,7 @@ class TemporalTrafficModel:
         self.remat = remat
         self.head = head
         self.attention_chunk = attention_chunk
+        self.optimizer = make_optimizer(optimizer, learning_rate)
 
     def init_params(self, generator: torch.Generator,
                     device: Device = "cuda") -> Params:
@@ -146,8 +157,8 @@ class TemporalTrafficModel:
     def _head(self, params: Params, rep: torch.Tensor) -> torch.Tensor:
         """[..., D] attended representation -> [...] float32 score (the
         dense head)."""
-        h = torch.relu(bf16_linear(rep.to(torch.bfloat16), params["w1"],
-                                   params["b1"]))
+        h = relu(bf16_linear(rep.to(torch.bfloat16), params["w1"],
+                             params["b1"]))
         return bf16_linear(h, params["w2"], params["b2"])[..., 0].float()
 
     def scores(self, params: Params, window: torch.Tensor) -> torch.Tensor:
@@ -175,7 +186,15 @@ class TemporalTrafficModel:
         attended representation through the head."""
         t, g, e, f = window.shape
         q, k, v = self._embed_qkv(params, window)
-        return self._head(params, self._attend(q, k, v)).reshape(t, g, e)
+        attended = self._attend(q, k, v)
+        if self.remat and torch.is_grad_enabled():
+            # the [T, S, H] hidden is recomputed in the backward instead
+            # of kept (the reference's jax.checkpoint of the head)
+            scores = checkpoint(self._head, params, attended,
+                                use_reentrant=False)
+        else:
+            scores = self._head(params, attended)
+        return scores.reshape(t, g, e)
 
     def forward(self, params: Params, window: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
@@ -193,6 +212,18 @@ class TemporalTrafficModel:
             return masked_ce_loss(seq, batch.mask, batch.target).mean()
         return masked_ce_loss(self.scores_last(params, window), batch.mask,
                               batch.target)
+
+    def train_step(self, params: Params, opt_state, window: torch.Tensor,
+                   batch: Batch):
+        """One optimizer step on (window, batch): (params, opt_state,
+        loss at the old params).  Under sequence supervision with the
+        flash path, the step runs K6b, K7 and K8 once each."""
+        if self.attention_chunk:
+            raise ValueError(
+                "attention_chunk > 0 in training is for the fused one-sweep "
+                "flash backward (kernel K9), which is not ported "
+                "(ROADMAP.md B4); train with attention_chunk=0")
+        return super().train_step(params, opt_state, window, batch)
 
 
 def attention_last_reference(q_last: torch.Tensor, k: torch.Tensor,

@@ -18,7 +18,7 @@ import torch
 from ..device import Device, resolve_device
 from ..ops.cuda_mlp import dense_scores, forward_cuda, score_rows_cuda
 from ..ops.weights import plan_weights
-from .common import masked_ce_loss
+from .common import TrainableModel, make_optimizer, masked_ce_loss
 
 Params = Dict[str, torch.Tensor]
 
@@ -32,7 +32,7 @@ class Batch(NamedTuple):
     target: torch.Tensor    # [G, E] float32 target distribution
 
 
-class TrafficPolicyModel:
+class TrafficPolicyModel(TrainableModel):
     """``serve`` picks the inference path of :meth:`forward`:
 
     - ``auto`` (default): kernel K3 (``ops.cuda_mlp.forward_cuda``:
@@ -41,15 +41,21 @@ class TrafficPolicyModel:
     - ``dense``: always :meth:`forward_dense`;
     - ``fused``: always ``forward_cuda``, whose CPU version is the same
       math in plain PyTorch.
+
+    Training (``train_step``, ``optimizer`` ``adam`` or ``flat_adam``)
+    always takes the dense path, as in the reference: the kernel's
+    integer weights have no gradient.
     """
 
     def __init__(self, feature_dim: int = FEATURE_DIM,
-                 hidden_dim: int = HIDDEN_DIM, serve: str = "auto"):
+                 hidden_dim: int = HIDDEN_DIM, learning_rate: float = 1e-3,
+                 serve: str = "auto", optimizer: str = "adam"):
         if serve not in ("auto", "dense", "fused"):
             raise ValueError(f"unknown serve impl {serve!r}")
         self.feature_dim = feature_dim
         self.hidden_dim = hidden_dim
         self.serve = serve
+        self.optimizer = make_optimizer(optimizer, learning_rate)
 
     def init_params(self, generator: torch.Generator,
                     device: Device = "cuda") -> Params:

@@ -1,51 +1,72 @@
-"""Kernel K6a: causal flash-attention forward, and its plain version.
+"""Causal flash attention, forward and backward: kernels K6a, K6b, K7 and
+K8, their plain versions, and the autograd seam between them.
 
 ``flash_attention`` is the port of the JAX package's
-``ops/pallas_attention.py::flash_attention`` forward (kernel ``_kernel``,
-``:287``, launched by ``_flash`` at ``:379``): q, k, v [T, H, D] ->
-[T, H, D], exact softmax attention with the flash online recurrence, the
-H axis being independent heads (the temporal model's endpoint streams).
-On CUDA tensors it launches ``csrc/flash_attention.cu`` (see the bound and
-design notes there); on CPU tensors it runs :func:`flash_attention_plain`
-at the kernel's K block.
+``ops/pallas_attention.py::flash_attention`` (``:406-433``): q, k, v
+[T, H, D] -> [T, H, D], exact softmax attention with the flash online
+recurrence, the H axis being independent heads (the temporal model's
+endpoint streams).  Like the reference's ``jax.custom_vjp`` (``:1038-
+1068``) it has two faces:
 
-Arithmetic, shared by the kernel and the plain version (the contract of
-``_prescale`` and ``_attend_step``, ``pallas_attention.py:197-270``,
-``:346-353``):
+- with no gradient to take, the forward alone: kernel K6a
+  (``csrc/flash_attention.cu``, the reference's ``_kernel`` ``:287``);
+- under autograd, :class:`FlashAttention`: its forward is kernel K6b
+  (:func:`flash_attention_stats`, the reference's ``_stats_kernel``
+  ``:301`` with ``normalize=True``), which also saves the per-row softmax
+  stats m and l; its backward (:func:`flash_attention_bwd`) computes
+  dvec = rowsum(do * o) with plain torch ops and runs the two-sweep
+  backward, kernels K7 (:func:`flash_bwd_dq`, ``_dq_kernel`` ``:455``)
+  and K8 (:func:`flash_bwd_dkv`, ``_dkv_kernel`` ``:707``) in
+  ``csrc/flash_attention_bwd.cu``.
 
-- q is pre-scaled by D**-0.5 with one rounding to bf16;
+On CUDA tensors each wrapper launches its kernel or raises; on CPU
+tensors it runs its plain version at the kernels' block, :data:`BLOCK_K`.
+
+Arithmetic, shared by the kernels and the plain versions (``_prescale``
+``:346``, ``_attend_step`` ``:197``, the backward bodies ``:480-514``,
+``:736-760``):
+
+- q is pre-scaled by D**-0.5 with one rounding to bf16 (q');
 - s = q'.k^T from bf16 operands with f32 sums; masked scores are -1e30
   (causal by global position, and keys past T);
-- per K block: m_new = max(m, rowmax s) (m starts at -1e30),
+- forward, per K block: m_new = max(m, rowmax s) (m starts at -1e30),
   p = exp(s - m_new) in f32, l = l * exp(m - m_new) + sum(p), and
-  acc = acc * exp(m - m_new) + bf16(p) . v with f32 sums;
-- o = acc / l, rounded to bf16.
+  acc = acc * exp(m - m_new) + bf16(p) . v with f32 sums; o = acc / l
+  (K6b: / max(l, 1), the same number, since l >= 1), rounded to bf16;
+- backward: p = exp(s - m) / max(l, 1) from the saved stats, dp = do.v^T,
+  ds = p * (dp - dvec); dq = bf16(sum bf16(ds).k * D**-0.5), dk =
+  bf16(sum bf16(ds)^T.q'), dv = bf16(sum bf16(p)^T.do), f32 sums.
 
-p is rounded against the running max, so the result depends on the K
-block partition at the last-ulp level: the plain version takes
-``block_k``, and a comparison with the kernel uses the kernel's
-:data:`BLOCK_K`.
+p is rounded against the running max, so the forward depends on the K
+block partition at the last-ulp level (o and l): the plain versions take
+``block_k`` (and the backward ``block_q`` for its sums' order), and a
+comparison with a kernel uses the kernel's :data:`BLOCK_K`.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from ..kernels.build import Kernel, require_cuda
 
-#: rows of q and keys of k/v per tile of the kernel
+#: rows of q and keys of k/v per tile of the kernels
 BLOCK_K = 64
-#: the largest head width the kernel takes (it pads D to 16, 32, 64 or
+#: the largest head width the kernels take (they pad D to 16, 32, 64 or
 #: 128 in shared memory and registers)
 MAX_HEAD_DIM = 128
 
 _NEG_INF = -1e30
 
 _P = ctypes.c_void_p
-_FLASH = Kernel("flash_attention", "agac_flash_attention",
-                [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_float, ctypes.c_int])
+_I = ctypes.c_int
+_SIZES = [_I, _I, _I, ctypes.c_float, _I]      # T, S, D, scale, causal
+_FLASH = Kernel("flash_attention", "agac_flash_attention", [_P] * 4 + _SIZES)
+_FLASH_STATS = Kernel("flash_attention_stats", "agac_flash_attention_stats",
+                      [_P] * 6 + _SIZES)
+_FLASH_DQ = Kernel("flash_bwd_dq", "agac_flash_bwd_dq", [_P] * 8 + _SIZES)
+_FLASH_DKV = Kernel("flash_bwd_dkv", "agac_flash_bwd_dkv", [_P] * 9 + _SIZES)
 
 
 def _prescale(q: torch.Tensor) -> torch.Tensor:
@@ -53,70 +74,302 @@ def _prescale(q: torch.Tensor) -> torch.Tensor:
     return (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          block_k: int = BLOCK_K) -> torch.Tensor:
-    """The plain version of kernel K6a: [T, H, D] -> [T, H, D] in q's
-    dtype, the online softmax folded over K blocks of ``block_k`` keys.
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """[T, H, D] -> head-major [H, T, D] float32."""
+    return x.transpose(0, 1).float()
+
+
+def _scores(qh: torch.Tensor, kh: torch.Tensor, q_pos: torch.Tensor,
+            k_pos: torch.Tensor, causal: bool) -> torch.Tensor:
+    """s = q'.k^T [H, rows, keys] f32, -1e30 where the mask drops it."""
+    s = qh @ kh.transpose(1, 2)
+    if causal:
+        s = torch.where(q_pos[:, None] >= k_pos[None, :], s, _NEG_INF)
+    return s
+
+
+def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, causal: bool = True,
+                                block_k: int = BLOCK_K
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The plain version of kernels K6a and K6b: (o [T, H, D] in q's
+    dtype, m [H, T] f32, l [H, T] f32), the online softmax folded over K
+    blocks of ``block_k`` keys, o divided by max(l, 1).
 
     Every query row folds every K block; a block wholly in a row's
     future has all its scores at -1e30, which leaves (m, l, acc) bit for
-    bit unchanged, so this equals the kernel's skipping of such blocks.
+    bit unchanged, so this equals the kernels' skipping of such blocks.
     """
     T = q.shape[0]
-    qh = _prescale(q).transpose(0, 1).float()        # [H, T, D]
-    kh = k.transpose(0, 1).float()
-    vh = v.transpose(0, 1).float()
+    qh, kh, vh = _heads(_prescale(q)), _heads(k), _heads(v)
     H, _, D = qh.shape
     m = torch.full((H, T, 1), _NEG_INF, device=q.device)
     l = torch.zeros((H, T, 1), device=q.device)
     acc = torch.zeros((H, T, D), device=q.device)
-    q_pos = torch.arange(T, device=q.device)[:, None]
+    q_pos = torch.arange(T, device=q.device)
     for j0 in range(0, k.shape[0], block_k):
         kb, vb = kh[:, j0:j0 + block_k], vh[:, j0:j0 + block_k]
-        s = qh @ kb.transpose(1, 2)                  # [H, T, bk] f32
-        if causal:
-            k_pos = torch.arange(j0, j0 + kb.shape[1], device=q.device)
-            s = torch.where(q_pos >= k_pos[None, :], s, _NEG_INF)
+        s = _scores(qh, kb, q_pos, q_pos[j0:j0 + block_k], causal)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p.to(torch.bfloat16).float() @ vb
         m = m_new
-    return (acc / l).to(q.dtype).transpose(0, 1)
+    o = (acc / l.clamp_min(1.0)).to(q.dtype).transpose(0, 1)
+    return o, m[..., 0], l[..., 0]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          block_k: int = BLOCK_K) -> torch.Tensor:
+    """The plain version of kernel K6a: [T, H, D] -> [T, H, D] in q's
+    dtype (:func:`flash_attention_stats_plain` without the stats)."""
+    return flash_attention_stats_plain(q, k, v, causal, block_k)[0]
+
+
+def attention_dvec(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """dvec = rowsum(f32(do) * f32(o)) [H, T] f32 from the bf16 o, as the
+    reference computes it outside its kernels (``:905-909``)."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(0, 1).contiguous()
+
+
+def _p_ds(qh, kh, vh, doh, m, l, dvec, rows, causal):
+    """p and ds [H, len(rows), T] f32 of the q rows ``rows`` against
+    every key, from the saved stats."""
+    pos = torch.arange(kh.shape[1], device=qh.device)
+    s = _scores(qh[:, rows], kh, pos[rows], pos, causal)
+    p = torch.exp(s - m[:, rows, None]) / l[:, rows, None].clamp_min(1.0)
+    dp = doh[:, rows] @ vh.transpose(1, 2)
+    return p, p * (dp - dvec[:, rows, None])
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal: bool = True,
+                       block_q: int = BLOCK_K,
+                       block_k: int = BLOCK_K) -> torch.Tensor:
+    """The plain version of kernel K7: dq [T, H, D] in q's dtype,
+    sum over K blocks of ``block_k`` of bf16(ds).k (f32), times D**-0.5
+    once, rounded; q rows in blocks of ``block_q`` (no effect on the
+    result, only on the memory it takes)."""
+    T, _, D = q.shape
+    qh, kh, vh, doh = _heads(_prescale(q)), _heads(k), _heads(v), _heads(do)
+    dq = torch.zeros_like(qh)
+    for i0 in range(0, T, block_q):
+        rows = slice(i0, i0 + block_q)
+        _, ds = _p_ds(qh, kh, vh, doh, m, l, dvec, rows, causal)
+        ds = _bf16(ds)
+        for j0 in range(0, T, block_k):
+            dq[:, rows] += ds[..., j0:j0 + block_k] @ kh[:, j0:j0 + block_k]
+    return (dq * D ** -0.5).to(q.dtype).transpose(0, 1)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal: bool = True,
+                        block_q: int = BLOCK_K
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel K8: (dk, dv) [T, H, D] in k's and v's
+    dtypes, sums over q blocks of ``block_q`` of bf16(ds)^T.q' and
+    bf16(p)^T.do (f32), rounded."""
+    T = q.shape[0]
+    qh, kh, vh, doh = _heads(_prescale(q)), _heads(k), _heads(v), _heads(do)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for i0 in range(0, T, block_q):
+        rows = slice(i0, i0 + block_q)
+        p, ds = _p_ds(qh, kh, vh, doh, m, l, dvec, rows, causal)
+        dk += _bf16(ds).transpose(1, 2) @ qh[:, rows]
+        dv += _bf16(p).transpose(1, 2) @ doh[:, rows]
+    return (dk.to(k.dtype).transpose(0, 1), dv.to(v.dtype).transpose(0, 1))
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, m, l, causal: bool = True,
+                              block_q: int = BLOCK_K, block_k: int = BLOCK_K
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The plain version of the two-sweep backward: (dq, dk, dv)
+    [T, H, D] from q, k, v, the forward's bf16 o, the cotangent do and
+    the stats m, l [H, T]."""
+    dvec = attention_dvec(o, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal, block_q,
+                            block_k)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal,
+                                     block_q))
+
+
+def flash_attention_bwd_magnitude(q, k, v, o, do, m, l, causal: bool = True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """What each gradient sums, in absolute value, [T, H, D] f32: for dq
+    D**-0.5 sum_j p (|dp| + |dvec|) |k_j|, for dk sum_i p (|dp| + |dvec|)
+    |q'_i|, for dv sum_i p |do_i|.  Rounding p or ds (|ds| <= p (|dp| +
+    |dvec|)) the other way, or another f32 order of dp and dvec, moves a
+    gradient by at most about one bf16 ulp of this, whatever the
+    cancellation in its sum, so comparisons of the backward are stated
+    in ulps of it (``parity.attention_close``)."""
+    T, _, D = q.shape
+    qh, kh, vh, doh = _heads(_prescale(q)), _heads(k), _heads(v), _heads(do)
+    dvec = attention_dvec(o, do)
+    pos = torch.arange(T, device=q.device)
+    s = _scores(qh, kh, pos, pos, causal)
+    p = torch.exp(s - m[..., None]) / l[..., None].clamp_min(1.0)
+    w = p * ((doh @ vh.transpose(1, 2)).abs() + dvec.abs()[..., None])
+    return ((w @ kh.abs() * D ** -0.5).transpose(0, 1),
+            (w.transpose(1, 2) @ qh.abs()).transpose(0, 1),
+            (p.transpose(1, 2) @ doh.abs()).transpose(0, 1))
+
+
+def _check(name: str, *xs: torch.Tensor) -> Tuple[torch.device, int, int,
+                                                  int]:
+    """(device, T, H, D) of bf16 [T, H, D] tensors the kernels take, or
+    ValueError."""
+    dev = require_cuda(name, *xs)
+    if xs[0].dim() != 3 or any(x.shape != xs[0].shape for x in xs):
+        raise ValueError(f"{name}: q, k, v must be one [T, H, D], got "
+                         + ", ".join(str(tuple(x.shape)) for x in xs))
+    if any(x.dtype != torch.bfloat16 for x in xs):
+        raise ValueError(f"{name}: the kernel takes bfloat16 q, k, v")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{name}: the kernel takes contiguous q, k, v")
+    T, H, D = xs[0].shape
+    if D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"{name}: the kernel takes D <= {MAX_HEAD_DIM}, a "
+                         f"multiple of 8; got D={D}")
+    if -(-T // BLOCK_K) > 65535:
+        raise ValueError(f"{name}: T={T} exceeds the kernel's grid "
+                         f"({65535 * BLOCK_K} rows)")
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{name}: the kernel reads q, k, v in 16-byte "
+                         f"vectors; their storage must be 16-byte aligned")
+    return dev, T, H, D
+
+
+def _check_stats(name: str, dev: torch.device, T: int, H: int,
+                 *stats: torch.Tensor) -> None:
+    for x in stats:
+        if (x.device != dev or x.dtype != torch.float32
+                or tuple(x.shape) != (H, T) or not x.is_contiguous()):
+            raise ValueError(f"{name}: the stats must be contiguous float32 "
+                             f"[H, T] = {(H, T)} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
+def _on_cpu(*xs: torch.Tensor) -> bool:
+    return all(x.device.type == "cpu" for x in xs)
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True
+                            ) -> torch.Tensor:
     """q, k, v [T, H, D] bfloat16 -> [T, H, D] bfloat16: kernel K6a on
     CUDA tensors (contiguous and 16-byte aligned, D <=
     :data:`MAX_HEAD_DIM` and a multiple of 8), :func:`flash_attention_plain`
     at :data:`BLOCK_K` on CPU tensors."""
-    if all(x.device.type == "cpu" for x in (q, k, v)):
+    if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal, BLOCK_K)
-    dev = require_cuda("flash_attention", q, k, v)
-    if not (q.shape == k.shape == v.shape) or q.dim() != 3:
-        raise ValueError(f"flash_attention: q, k, v must be one [T, H, D], "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise ValueError("flash_attention: the kernel takes bfloat16 q, k, v")
-    if not all(x.is_contiguous() for x in (q, k, v)):
-        raise ValueError("flash_attention: the kernel takes contiguous "
-                         "q, k, v")
-    T, H, D = q.shape
-    if D > MAX_HEAD_DIM or D % 8:
-        raise ValueError(f"flash_attention: the kernel takes D <= "
-                         f"{MAX_HEAD_DIM}, a multiple of 8; got D={D}")
-    if -(-T // BLOCK_K) > 65535:
-        raise ValueError(f"flash_attention: T={T} exceeds the kernel's grid "
-                         f"({65535 * BLOCK_K} rows)")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_attention: the kernel reads q, k, v in "
-                         "16-byte vectors; their storage must be 16-byte "
-                         "aligned")
+    dev, T, H, D = _check("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if out.numel():
         _FLASH(dev, q, k, v, out, T, H, D, D ** -0.5, int(causal))
     return out
+
+
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """(o [T, H, D] bf16, m [H, T] f32, l [H, T] f32): kernel K6b on CUDA
+    tensors (the checks of :func:`flash_attention_forward`),
+    :func:`flash_attention_stats_plain` at :data:`BLOCK_K` on CPU
+    tensors."""
+    if _on_cpu(q, k, v):
+        return flash_attention_stats_plain(q, k, v, causal, BLOCK_K)
+    dev, T, H, D = _check("flash_attention_stats", q, k, v)
+    out = torch.empty_like(q)
+    m = torch.empty((H, T), dtype=torch.float32, device=dev)
+    l = torch.empty((H, T), dtype=torch.float32, device=dev)
+    if out.numel():
+        _FLASH_STATS(dev, q, k, v, out, m, l, T, H, D, D ** -0.5,
+                     int(causal))
+    return out, m, l
+
+
+def flash_bwd_dq(q, k, v, do, m, l, dvec, causal: bool = True
+                 ) -> torch.Tensor:
+    """dq [T, H, D] bf16: kernel K7 on CUDA tensors (q, k, v, do as
+    :func:`flash_attention_forward` takes them; m, l, dvec contiguous f32
+    [H, T]), :func:`flash_bwd_dq_plain` at :data:`BLOCK_K` on CPU
+    tensors."""
+    if _on_cpu(q, k, v, do, m, l, dvec):
+        return flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal)
+    dev, T, H, D = _check("flash_bwd_dq", q, k, v, do)
+    _check_stats("flash_bwd_dq", dev, T, H, m, l, dvec)
+    dq = torch.empty_like(q)
+    if dq.numel():
+        _FLASH_DQ(dev, q, k, v, do, m, l, dvec, dq, T, H, D, D ** -0.5,
+                  int(causal))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, m, l, dvec, causal: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [T, H, D] bf16: kernel K8 on CUDA tensors (the checks of
+    :func:`flash_bwd_dq`), :func:`flash_bwd_dkv_plain` at :data:`BLOCK_K`
+    on CPU tensors."""
+    if _on_cpu(q, k, v, do, m, l, dvec):
+        return flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal)
+    dev, T, H, D = _check("flash_bwd_dkv", q, k, v, do)
+    _check_stats("flash_bwd_dkv", dev, T, H, m, l, dvec)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel():
+        _FLASH_DKV(dev, q, k, v, do, m, l, dvec, dk, dv, T, H, D, D ** -0.5,
+                   int(causal))
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, m, l, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """(dq, dk, dv) of the flash attention whose forward gave o, m, l:
+    dvec with plain torch ops, then K7 and K8 (their plain versions on
+    CPU tensors)."""
+    dvec = attention_dvec(o, do)
+    return (flash_bwd_dq(q, k, v, do, m, l, dvec, causal),
+            *flash_bwd_dkv(q, k, v, do, m, l, dvec, causal))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash VJP (the reference's ``_flash_diff_fwd`` /
+    ``_flash_diff_bwd``, ``:1043-1068``): the forward saves q, k, v, the
+    bf16 o and the f32 stats (q' is recomputed by the kernels, as
+    ``_prescale`` is deterministic); the backward takes the cotangent
+    contiguous (the head's reshapes and a chunk's slices hand it over
+    strided) and returns dq, dk, dv in bf16."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, m, l = flash_attention_stats(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o,
+                                         do.to(o.dtype).contiguous(), m, l,
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q, k, v [T, H, D] bfloat16 -> [T, H, D] bfloat16 causal flash
+    attention: :class:`FlashAttention` (K6b, then K7 and K8 in the
+    backward) when autograd records and an input requires a gradient,
+    else the forward alone (K6a); on CPU tensors, their plain versions."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention_forward(q, k, v, causal)

@@ -50,7 +50,11 @@ _PARAM_NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` as XLA's bf16 dot computes it: exact bf16 products summed
-    in full f32 (TF32 off), rounded to bf16."""
+    in full f32 (TF32 off), rounded to bf16.  Its gradient is the same
+    dot's: the bf16 cotangent, f32 sums, rounded to bf16."""
+    # f32 GEMMs on the card, forward and backward, must not drop to TF32
+    # (10-bit mantissa): the products are exact only in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return (x.float() @ w.float()).to(torch.bfloat16)
 
 
@@ -61,15 +65,18 @@ def bf16_linear(x: torch.Tensor, w: torch.Tensor,
     return bf16_matmul(x, w) + b
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``: the same values as ``torch.relu``, and the
+    same gradient, which at x == 0 is half the cotangent."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def dense_scores(params: Params, x: torch.Tensor) -> torch.Tensor:
     """[..., F] -> [...] float32 scores through three dense matmuls (the
     plain version of the kernel's MLP)."""
-    # f32 GEMMs on the card must not drop to TF32 (10-bit mantissa):
-    # the products are exact only in full f32
-    torch.backends.cuda.matmul.allow_tf32 = False
     x = x.to(torch.bfloat16)
-    h = torch.relu(bf16_linear(x, params["w1"], params["b1"]))
-    h = torch.relu(bf16_linear(h, params["w2"], params["b2"]))
+    h = relu(bf16_linear(x, params["w1"], params["b1"]))
+    h = relu(bf16_linear(h, params["w2"], params["b2"]))
     s = bf16_linear(h, params["w3"], params["b3"])
     return s[..., 0].float()
 

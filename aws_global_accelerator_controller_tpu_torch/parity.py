@@ -14,6 +14,11 @@ versions on the card and against the JAX package on the CPU.
   of the scores can round one p the other way (a change of one bf16 ulp
   of w_j |v_j|); where the sum cancels to near zero that is many ulps of
   the output but never more than one of the magnitude.
+- Gradients through the flash kernels agree with dense autograd through
+  the attention oracle within rtol 5e-2, atol 5e-3 (:func:`grads_close`):
+  the JAX package's own flash-vs-dense gradient tolerance
+  (``tests/test_temporal_model.py:121-142``).  The flash backward rounds
+  p and ds to bf16 before its products, dense autograd does not.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ import numpy as np
 MAX_WEIGHT_DIFF = 1
 MAX_MISMATCH_FRAC = 0.005
 MAX_SCORE_ULPS = 2
+GRAD_RTOL = 5e-2
+GRAD_ATOL = 5e-3
 
 
 def weight_mismatch(got, want) -> Tuple[int, float]:
@@ -62,3 +69,18 @@ def attention_close(got, want, magnitude, ulps: int = MAX_SCORE_ULPS) -> bool:
     """Attention outputs within ``ulps`` bf16 ulps of ``magnitude``, the
     same attention over |v| (sum_j w_j |v_j|)."""
     return scores_close(got, want, ulps, scale=magnitude)
+
+
+def grad_error(got, want) -> float:
+    """max |got - want| / (GRAD_ATOL + GRAD_RTOL |want|): <= 1 passes."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if want.size == 0:
+        return 0.0
+    return float((np.abs(got - want)
+                  / (GRAD_ATOL + GRAD_RTOL * np.abs(want))).max())
+
+
+def grads_close(got, want) -> bool:
+    """A gradient within rtol :data:`GRAD_RTOL`, atol :data:`GRAD_ATOL`."""
+    return grad_error(got, want) <= 1.0

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's weight-planning and temporal paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's weight-planning, temporal and training paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -27,16 +27,29 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
 6. runs ``scores_seq`` of a temporal model with D = 128, hidden 256 on a
    2048-step window of 8 x 16 streams once through the flash kernel and
    holds it against the dense reference attention on the card;
-7. holds every kernel against its plain PyTorch version on the card, at
-   the shapes the paths give it, and times both (and, where one exists,
-   a PyTorch call computing the same function); then times the flash
-   kernel against the dense reference attention at short windows (the
-   ``FLASH_MIN_WINDOW`` crossover).
+7. runs ``train --model temporal --supervision sequence`` at its
+   defaults (a 64-step window over 256 x 32 streams, D = 32, hidden 128)
+   for 10 steps: exactly one launch each of the flash forward with stats
+   (K6b) and the backward sweeps (K7, K8) a step, and none of the plain
+   forward (K6a); then the same command for 3 steps on the card and on
+   the CPU, whose final losses must agree within ``TRAIN_LOSS_RTOL``;
+8. runs one ``train_step`` at the production temporal shape (phase 6's)
+   with adam: one K6b, K7 and K8 launch; every parameter's gradient held
+   to the same gradient through the dense reference attention within
+   the JAX package's flash-vs-dense tolerance (``parity.grads_close``);
+   then times three steps;
+9. runs ``train --model mlp`` for 3 steps on the card and on the CPU
+   (dense, as in the reference: no kernel);
+10. holds every kernel against its plain PyTorch version on the card, at
+    the shapes the paths give it, and times both (and, where one exists,
+    a PyTorch call computing the same function); then times the flash
+    kernel against the dense reference attention at short windows (the
+    ``FLASH_MIN_WINDOW`` crossover).
 
-Before each of phases 1-6 every launch count is set to 0; after each the
+Before each of phases 1-9 every launch count is set to 0; after each the
 script fails unless every kernel that phase runs was launched (and, for
-the flash kernel in phases 4-6, launched exactly as often as the path
-calls it).  Phase 3 reads its counts after the last churn wave, demands
+the flash kernels in phases 4-9, launched exactly as often as the path
+calls them).  Phase 3 reads its counts after the last churn wave, demands
 that the churn waves alone launched each of their kernels, and reports
 the full repack's launches apart.
 
@@ -87,6 +100,21 @@ SEQ_EMBED, SEQ_HIDDEN = 128, 256
 #: the JAX package's flash-vs-reference tolerance
 #: (tests/test_temporal_model.py:41-42)
 SEQ_TOL = 2e-2
+#: steps of the train phase on the card, and of its card-vs-CPU check
+TRAIN_STEPS, TRAIN_CHECK_STEPS = 10, 3
+#: card vs CPU final loss of ``train --steps 3``: the loss after two
+#: updates.  The kernels and the CPU's plain versions sum in other f32
+#: orders, so a few bf16 params land one ulp apart after an update (a
+#: near-zero gradient can even flip its Adam step); on the CPU, the same
+#: mechanism moves the port's 3-step loss from the JAX package's by at
+#: most 6e-5 relative (tests/test_torch_train.py), and 1e-3 leaves room
+#: for the larger default batch's other sums
+TRAIN_LOSS_RTOL = 1e-3
+#: steps timed after the production-shape train step
+SEQ_TRAIN_TIMED_STEPS = 3
+#: the flash kernels' launch-count names
+K6A, K6B, K7, K8 = ("flash_attention", "flash_attention_stats",
+                    "flash_bwd_dq", "flash_bwd_dkv")
 
 
 class SmokeError(RuntimeError):
@@ -527,8 +555,139 @@ def _k6a():
                                  SEQ_EMBED, 8, iters=5, eager_iters=5))
 
 
+def _check_close(name: str, got, want, mag) -> tuple:
+    """(max |d|, fraction that differs, max |d| in bf16 ulps of
+    max(|want|, |mag|)): finite, and within 2 bf16 ulps of the magnitude
+    (``parity.attention_close``)."""
+    import numpy as np
+
+    from aws_global_accelerator_controller_tpu_torch import parity
+
+    got_h, want_h, mag_h = (_host(x.float()) for x in (got, want, mag))
+    check(bool(np.isfinite(got_h).all()), f"{name}: non-finite output")
+    diff = np.abs(got_h - want_h)
+    ulps = float((diff / parity.bf16_ulp(
+        np.maximum(np.abs(want_h), np.abs(mag_h)))).max())
+    check(parity.attention_close(got_h, want_h, mag_h),
+          f"{name}: {ulps} bf16 ulps of the magnitude from its plain "
+          f"version (allowed {parity.MAX_SCORE_ULPS})")
+    return float(diff.max()), float((diff > 0).mean()), ulps
+
+
+def _flash_train_rows(T, S, D, seed, iters=20, eager_iters=50):
+    """K6b, K7 and K8 at one shape: each against its plain version at
+    the kernels' block on the same inputs (the backward on K6b's own o,
+    m, l and a random bf16 cotangent), and timed beside its plain
+    version and PyTorch's SDPA (forward; backward, which gives dq, dk
+    and dv together, as fwd+bwd minus fwd)."""
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch.ops import (
+        cuda_attention as ca,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(T, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    shape = f"T={T} S={S} D={D}"
+    blk = ca.BLOCK_K
+
+    # K6b
+    o, m, l = ca.flash_attention_stats(q, k, v)
+    po, pm, pl = ca.flash_attention_stats_plain(q, k, v, True, blk)
+    mag = ca.flash_attention_plain(q, k, v.abs(), True, blk)
+    torch.cuda.synchronize()
+    err, frac, ulps = _check_close(f"flash_attention_stats {shape}", o, po,
+                                   mag)
+    check(torch.equal(o, ca.flash_attention_forward(q, k, v)),
+          f"flash_attention_stats {shape}: o differs from K6a's")
+    stats_err = max(float((m - pm).abs().max()), float((l - pl).abs().max()))
+    check(bool(torch.allclose(m, pm, rtol=1e-5, atol=1e-5)
+               and torch.allclose(l, pl, rtol=1e-5, atol=1e-5)),
+          f"flash_attention_stats {shape}: m, l off by {stats_err}")
+    heads = [x.transpose(0, 1).unsqueeze(0).contiguous() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = T * (T + 1) / 2 * S          # live (query, key) pairs
+    fwd = _record(
+        "flash_attention_stats", f"{SRC}/flash_attention.cu",
+        f"{REF}/ops/pallas_attention.py:301", shape, err, frac,
+        timings(lambda: ca.flash_attention_stats(q, k, v),
+                lambda: ca.flash_attention_stats_plain(q, k, v, True, blk),
+                lambda: sdpa(*heads, is_causal=True), iters=iters,
+                eager_iters=eager_iters),
+        # q, k, v read, o, m, l written; 2 products of 2 D flops a pair
+        bound_ms(8 * T * S * D + 8 * T * S, 4.0 * D * pairs,
+                 BF16_FLOP_PER_S))
+    fwd["max_ulps_of_magnitude"] = ulps
+    fwd["stats_max_abs_err"] = stats_err
+
+    # K7 and K8 on K6b's o, m, l
+    dvec = ca.attention_dvec(o, do)
+    dq = ca.flash_bwd_dq(q, k, v, do, m, l, dvec)
+    dk, dv = ca.flash_bwd_dkv(q, k, v, do, m, l, dvec)
+    want_dq = ca.flash_bwd_dq_plain(q, k, v, do, m, l, dvec, True, blk, blk)
+    want_dk, want_dv = ca.flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, True,
+                                              blk)
+    mag_dq, mag_dk, mag_dv = ca.flash_attention_bwd_magnitude(
+        q, k, v, o, do, m, l)
+    torch.cuda.synchronize()
+    dq_err, dq_frac, dq_ulps = _check_close(f"flash_bwd_dq {shape}", dq,
+                                            want_dq, mag_dq)
+    dk_err, dk_frac, dk_ulps = _check_close(f"flash_bwd_dkv dk {shape}", dk,
+                                            want_dk, mag_dk)
+    dv_err, dv_frac, dv_ulps = _check_close(f"flash_bwd_dkv dv {shape}", dv,
+                                            want_dv, mag_dv)
+    again = ca.flash_attention_bwd(q, k, v, o, do, m, l)
+    check(all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))),
+          f"flash backward {shape}: two runs differ")
+    del mag_dq, mag_dk, mag_dv, want_dq, want_dk, want_dv, again
+
+    leaves = [x.requires_grad_(True) for x in heads]
+    dout = do.transpose(0, 1).unsqueeze(0).contiguous()
+    sdpa_fwd_bwd = time_device(lambda: torch.autograd.grad(
+        sdpa(*leaves, is_causal=True), leaves, dout), iters)
+    sdpa_fwd = time_device(lambda: sdpa(*leaves, is_causal=True), iters)
+    library = {"library_ms": sdpa_fwd_bwd - sdpa_fwd,
+               "library_fwd_bwd_ms": sdpa_fwd_bwd,
+               "library_note": "SDPA backward (fwd+bwd minus fwd): dq, dk "
+                               "and dv together, to compare with K7 + K8"}
+    stats_bytes = 12 * T * S            # m, l, dvec read
+    k7 = _record(
+        "flash_bwd_dq", f"{SRC}/flash_attention_bwd.cu",
+        f"{REF}/ops/pallas_attention.py:455", shape, dq_err, dq_frac,
+        {**timings(lambda: ca.flash_bwd_dq(q, k, v, do, m, l, dvec),
+                   lambda: ca.flash_bwd_dq_plain(q, k, v, do, m, l, dvec),
+                   iters=iters, eager_iters=eager_iters), **library},
+        # q, k, v, do read, dq written; 3 products
+        bound_ms(10 * T * S * D + stats_bytes, 6.0 * D * pairs,
+                 BF16_FLOP_PER_S))
+    k7["max_ulps_of_magnitude"] = dq_ulps
+    k8 = _record(
+        "flash_bwd_dkv", f"{SRC}/flash_attention_bwd.cu",
+        f"{REF}/ops/pallas_attention.py:707", shape, max(dk_err, dv_err),
+        max(dk_frac, dv_frac),
+        {**timings(lambda: ca.flash_bwd_dkv(q, k, v, do, m, l, dvec),
+                   lambda: ca.flash_bwd_dkv_plain(q, k, v, do, m, l, dvec),
+                   iters=iters, eager_iters=eager_iters), **library},
+        # q, k, v, do read, dk, dv written; 4 products
+        bound_ms(12 * T * S * D + stats_bytes, 8.0 * D * pairs,
+                 BF16_FLOP_PER_S))
+    k8["max_ulps_of_magnitude"] = max(dk_ulps, dv_ulps)
+    return fwd, k7, k8
+
+
+def _flash_train():
+    """K6b, K7, K8 at the train command's default shape and at the
+    production shape; the first is each row's main shape."""
+    main = _flash_train_rows(64, 256 * 32, 32, 9)
+    other = _flash_train_rows(SEQ_WINDOW, SEQ_GROUPS * SEQ_ENDPOINTS,
+                              SEQ_EMBED, 10, iters=5, eager_iters=5)
+    return [_other_shape(a, b) for a, b in zip(main, other)]
+
+
 def phase_kernels() -> list:
-    return [_k1(), _k2(), _k3(), _k3_scores(), _k4(), _k6a()]
+    return [_k1(), _k2(), _k3(), _k3_scores(), _k4(), _k6a(),
+            *_flash_train()]
 
 
 def phase_flash_crossover(S: int = 1024, D: int = 32,
@@ -709,6 +868,161 @@ def phase_temporal_seq(device: str, steps: int = SEQ_WINDOW,
             "streams": groups * endpoints, "embed_dim": embed_dim,
             "hidden_dim": hidden_dim, "ms": ms,
             "max_abs_err_vs_reference": err, "launches": launches}
+
+
+def _train_argv(model: str, groups: int, endpoints: int, hidden: int,
+                window: int) -> list:
+    argv = ["train", "--model", model, "--groups", str(groups),
+            "--endpoints", str(endpoints), "--hidden", str(hidden),
+            "--seed", "0"]
+    if model == "temporal":
+        argv += ["--supervision", "sequence", "--window", str(window)]
+    return argv
+
+
+def _train_vs_cpu(name, argv, device, steps, launch_counts):
+    """``train`` on ``device`` for ``steps`` (its launches read right
+    after), then for ``TRAIN_CHECK_STEPS`` on ``device`` and on the CPU:
+    finite losses, the right step counts, and the two short runs' final
+    losses within ``TRAIN_LOSS_RTOL``."""
+    out, ms = run_cli([*argv, "--steps", str(steps), "--device", device])
+    launches = launch_counts() if launch_counts else {}
+    short, short_ms = run_cli([*argv, "--steps", str(TRAIN_CHECK_STEPS),
+                               "--device", device])
+    cpu, cpu_ms = run_cli([*argv, "--steps", str(TRAIN_CHECK_STEPS),
+                           "--device", "cpu"])
+    for run, n in ((out, steps), (short, TRAIN_CHECK_STEPS),
+                   (cpu, TRAIN_CHECK_STEPS)):
+        check(run["step"] == n and run["loss"] is not None
+              and math.isfinite(run["loss"]) and "preempted" not in run,
+              f"{name}: {run}")
+    rel = abs(short["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"{name}: loss after {TRAIN_CHECK_STEPS} steps {short['loss']} "
+          f"vs {cpu['loss']} on the CPU (rtol {TRAIN_LOSS_RTOL})")
+    return {"phase": name, **out, "steps": steps, "ms": ms,
+            # the two runs on the card differ only in their step count
+            "ms_per_step": (ms - short_ms) / (steps - TRAIN_CHECK_STEPS),
+            "check_steps": TRAIN_CHECK_STEPS, "check_loss": short["loss"],
+            "cpu_loss": cpu["loss"], "cpu_ms": cpu_ms,
+            "loss_rel_err_vs_cpu": rel, "launches": launches}
+
+
+def phase_temporal_train(device: str, steps: int = TRAIN_STEPS,
+                         groups: int = 256, endpoints: int = 32,
+                         hidden: int = 128, window: int = 64,
+                         launch_counts=None) -> dict:
+    """``train --model temporal --supervision sequence`` on ``device``
+    (the sizes default to the command's own), checked against the CPU;
+    ``batch_ms`` is what one step's numpy batch and its upload take of
+    ``ms_per_step``."""
+    import numpy as np
+
+    from aws_global_accelerator_controller_tpu_torch.device import (
+        resolve_device,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.temporal import (
+        synthetic_window,
+    )
+
+    out = _train_vs_cpu(
+        "temporal_train",
+        _train_argv("temporal", groups, endpoints, hidden, window), device,
+        steps, launch_counts)
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    for i in range(3):
+        w, b = synthetic_window(np.random.default_rng(i), steps=window,
+                                groups=groups, endpoints=endpoints,
+                                per_step=True, device=dev)
+        _host(b.target[0, 0, :1])            # waits for the upload
+    out["batch_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    return out
+
+
+def phase_mlp_train(device: str, steps: int = TRAIN_STEPS,
+                    groups: int = 256, endpoints: int = 32,
+                    hidden: int = 128, launch_counts=None) -> dict:
+    """``train --model mlp`` on ``device`` (the sizes default to the
+    command's own), checked against the CPU."""
+    return _train_vs_cpu(
+        "mlp_train", _train_argv("mlp", groups, endpoints, hidden, 0),
+        device, steps, launch_counts)
+
+
+def phase_temporal_train_seq(device: str, steps: int = SEQ_WINDOW,
+                             groups: int = SEQ_GROUPS,
+                             endpoints: int = SEQ_ENDPOINTS,
+                             embed_dim: int = SEQ_EMBED,
+                             hidden_dim: int = SEQ_HIDDEN,
+                             timed_steps: int = SEQ_TRAIN_TIMED_STEPS,
+                             launch_counts=None) -> dict:
+    """One adam ``train_step`` of the sequence-supervised temporal model
+    on ``device``; every parameter's gradient held to the gradient
+    through the dense reference attention (``parity.grads_close``); then
+    ``timed_steps`` more steps timed."""
+    import numpy as np
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch import parity
+    from aws_global_accelerator_controller_tpu_torch.device import (
+        resolve_device,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.common import (
+        value_and_grad,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.temporal import (
+        TemporalTrafficModel,
+        synthetic_window,
+    )
+
+    dev = resolve_device(device)
+    kw = dict(embed_dim=embed_dim, hidden_dim=hidden_dim,
+              supervision="sequence")
+    model = TemporalTrafficModel(**kw)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    window, batch = synthetic_window(np.random.default_rng(0), steps=steps,
+                                     groups=groups, endpoints=endpoints,
+                                     per_step=True, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    state = model.init_opt_state(params)
+    sync()
+    t0 = time.perf_counter()
+    new, state, loss = model.train_step(params, state, window, batch)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts() if launch_counts else {}
+    check(math.isfinite(float(loss)), f"temporal_train_seq: loss {loss}")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in new.values()),
+          "temporal_train_seq: non-finite params after the step")
+    _, grads = value_and_grad(model.loss, params, window, batch)
+    _, ref = value_and_grad(
+        TemporalTrafficModel(attention="reference", **kw).loss, params,
+        window, batch)
+    errs = {k: parity.grad_error(_host(g.float()), _host(ref[k].float()))
+            for k, g in grads.items()}
+    check(all(e <= 1.0 for e in errs.values()),
+          f"temporal_train_seq: flash vs reference gradients (error / "
+          f"tolerance, rtol {parity.GRAD_RTOL} atol {parity.GRAD_ATOL}): "
+          f"{errs}")
+    del grads, ref
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        new, state, loss = model.train_step(new, state, window, batch)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(timed_steps, 1)
+    check(math.isfinite(float(loss)), f"temporal_train_seq: loss {loss}")
+    return {"phase": "temporal_train_seq", "device": str(dev),
+            "steps": steps, "streams": groups * endpoints,
+            "embed_dim": embed_dim, "hidden_dim": hidden_dim,
+            "loss": float(loss), "first_step_ms": ms,
+            "ms_per_step": step_ms, "timed_steps": timed_steps,
+            "grad_error_vs_reference": errs, "launches": launches}
 
 
 def _compare_fleet(name, got, want):
@@ -900,7 +1214,7 @@ def main() -> int:
     # the path first: its first use of the card runs the device probe
     # (K1), as in any fresh process
     totals = {}
-    flash = "flash_attention"
+    train_once = {K6B: 1, K7: 1, K8: 1, K6A: 0}
     path = (("plan", lambda c: phase_plan("cuda", launch_counts=c),
              ("probe_double", "fused_mlp_plan"), None),
             ("whole_fleet", lambda c: phase_fleet("cuda", launch_counts=c),
@@ -909,13 +1223,22 @@ def main() -> int:
              WAVE_KERNELS, None),
             ("temporal_plan",
              lambda c: phase_temporal_plan("cuda", launch_counts=c),
-             (), {flash: 0}),
+             (), {K6A: 0}),
             ("temporal_eval",
              lambda c: phase_temporal_eval("cuda", launch_counts=c),
-             (flash,), {flash: EVAL_BATCHES}),
+             (K6A,), {K6A: EVAL_BATCHES}),
             ("temporal_seq",
              lambda c: phase_temporal_seq("cuda", launch_counts=c),
-             (flash,), {flash: 1}))
+             (K6A,), {K6A: 1}),
+            ("temporal_train",
+             lambda c: phase_temporal_train("cuda", launch_counts=c),
+             (K6B, K7, K8),
+             {k: n * TRAIN_STEPS for k, n in train_once.items()}),
+            ("temporal_train_seq",
+             lambda c: phase_temporal_train_seq("cuda", launch_counts=c),
+             (K6B, K7, K8), train_once),
+            ("mlp_train", lambda c: phase_mlp_train("cuda", launch_counts=c),
+             (), {k: 0 for k in train_once}))
     for name, fn, expect, exact in path:
         t0 = time.perf_counter()
         counts = run_path_phase(name, fn, expect, build, exact)

@@ -56,3 +56,30 @@ def test_temporal_seq_phase_rehearses_on_cpu():
                                         hidden_dim=32)
     assert out["streams"] == 6
     assert out["max_abs_err_vs_reference"] <= chip_smoke.SEQ_TOL
+
+
+def test_temporal_train_phase_rehearses_on_cpu():
+    build.reset_launch_counts()
+    out = chip_smoke.phase_temporal_train(
+        "cpu", steps=4, groups=3, endpoints=4, hidden=16,
+        launch_counts=build.launch_counts)
+    assert out["device"] == "cpu" and out["step"] == 4
+    assert out["loss_rel_err_vs_cpu"] == 0
+    assert out["check_loss"] == out["cpu_loss"]
+    assert not any(out["launches"].values())
+
+
+def test_temporal_train_seq_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_temporal_train_seq(
+        "cpu", steps=130, groups=2, endpoints=3, embed_dim=32,
+        hidden_dim=32, timed_steps=1)
+    assert out["streams"] == 6 and out["timed_steps"] == 1
+    assert set(out["grad_error_vs_reference"]) == {
+        "embed", "wq", "wk", "wv", "w1", "b1", "w2", "b2"}
+    assert max(out["grad_error_vs_reference"].values()) <= 1.0
+
+
+def test_mlp_train_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_mlp_train("cpu", steps=4, groups=8,
+                                     endpoints=4, hidden=16)
+    assert out["model"] == "mlp" and out["loss_rel_err_vs_cpu"] == 0

@@ -24,10 +24,22 @@ from aws_global_accelerator_controller_tpu_torch.models.temporal import (
 from aws_global_accelerator_controller_tpu_torch.models.traffic import (
     TrafficPolicyModel,
 )
+from aws_global_accelerator_controller_tpu_torch.models.common import (
+    value_and_grad,
+)
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
     BLOCK_K,
+    attention_dvec,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_magnitude,
     flash_attention_plain,
+    flash_attention_stats,
+    flash_attention_stats_plain,
+    flash_bwd_dkv,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq,
+    flash_bwd_dq_plain,
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     dense_scores,
@@ -265,3 +277,123 @@ def test_temporal_seq_on_card_matches_cpu_and_reference(cuda):
     loss_cpu = model.loss(params, window, batch)
     np.testing.assert_allclose(float(loss_card), float(loss_cpu),
                                rtol=1e-3)
+
+
+def _host(x):
+    return x.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 130, 200])
+@pytest.mark.parametrize("D", [16, 32, 40, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_stats_and_backward_kernels_match_plain_versions(cuda, T, D,
+                                                               causal):
+    """K6b, K7 and K8 against their plain versions at the kernels' block,
+    on the same inputs (the backward on K6b's own o, m, l): o, dq, dk and
+    dv within 2 bf16 ulps of the magnitude each sums, m and l within
+    1e-5 (s in another f32 order moves them by an f32 ulp or two)."""
+    q, k, v = _qkv(cuda, T, 3, D, 7 * T + D)
+    do = _qkv(cuda, T, 3, D, T + 11 * D)[0]
+    build.reset_launch_counts()
+    o, m, l = flash_attention_stats(q, k, v, causal)
+    dvec = attention_dvec(o, do)
+    dq = flash_bwd_dq(q, k, v, do, m, l, dvec, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, m, l, dvec, causal)
+    counts = build.launch_counts()
+    assert (counts["flash_attention_stats"], counts["flash_bwd_dq"],
+            counts["flash_bwd_dkv"], counts["flash_attention"]) == (1, 1, 1, 0)
+    torch.cuda.synchronize()
+    po, pm, pl = flash_attention_stats_plain(q, k, v, causal, BLOCK_K)
+    mag = flash_attention_plain(q, k, v.abs(), causal, BLOCK_K)
+    assert parity.attention_close(_host(o), _host(po), _host(mag))
+    assert torch.equal(o, flash_attention(q, k, v, causal))   # K6a's o
+    np.testing.assert_allclose(_host(m), _host(pm), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_host(l), _host(pl), rtol=1e-5, atol=1e-5)
+    want = (flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal),
+            *flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal))
+    mags = flash_attention_bwd_magnitude(q, k, v, o, do, m, l, causal)
+    for name, g, w, mg in zip(("dq", "dk", "dv"), (dq, dk, dv), want, mags):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert parity.attention_close(_host(g), _host(w), _host(mg)), name
+
+
+def test_flash_backward_is_reproducible_and_takes_a_strided_cotangent(cuda):
+    """Two backward runs agree bit for bit (no atomics), and autograd
+    through flash_attention takes a strided cotangent as its contiguous
+    copy: one K6b, K7 and K8 launch a backward, no K6a."""
+    q, k, v = _qkv(cuda, 130, 16, 32, 5)
+    wide = _qkv(cuda, 130, 32, 32, 6)[0]
+    do = wide[:, ::2]
+    assert not do.is_contiguous()
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        build.reset_launch_counts()
+        out = flash_attention(*leaves)
+        runs.append(torch.autograd.grad(out, leaves, do))
+        counts = build.launch_counts()
+        assert (counts["flash_attention_stats"], counts["flash_bwd_dq"],
+                counts["flash_bwd_dkv"], counts["flash_attention"]) == (
+                    1, 1, 1, 0)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    o, m, l = flash_attention_stats(q, k, v)
+    want = flash_attention_bwd(q, k, v, o, do.contiguous(), m, l)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], want))
+
+
+def test_flash_backward_kernels_refuse_what_they_cannot_take(cuda):
+    q, k, v = _qkv(cuda, 64, 2, 16, 0)
+    o, m, l = flash_attention_stats(q, k, v)
+    dvec = attention_dvec(o, q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention_stats(q.float(), k, v)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_bwd_dq(q, k, v, q.float(), m, l, dvec)
+    wide = torch.randn(64, 4, 16, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd_dkv(q, k, v, wide[:, ::2], m, l, dvec)
+    flat = torch.zeros(64 * 2 * 16 + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(64, 2, 16)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for fn in (lambda x: flash_attention_stats(x, k, v),
+               lambda x: flash_bwd_dq(q, k, v, x, m, l, dvec),
+               lambda x: flash_bwd_dkv(x, k, v, q, m, l, dvec)):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(shifted)
+    with pytest.raises(ValueError, match="stats"):
+        flash_bwd_dq(q, k, v, q, m.t(), l, dvec)
+    with pytest.raises(ValueError, match="stats"):
+        flash_bwd_dkv(q, k, v, q, m, l.double(), dvec)
+    with pytest.raises(ValueError, match="D <="):
+        flash_attention_stats(*_qkv(cuda, 8, 2, 136, 1))
+
+
+def test_temporal_train_step_on_card_matches_cpu(cuda):
+    """One sequence-supervised train step on the card (K6b, K7, K8 once
+    each) against the same step on the CPU: the loss within 1e-4, the
+    gradients within the gradient tolerance."""
+    kw = dict(embed_dim=32, hidden_dim=64, supervision="sequence")
+    model = TemporalTrafficModel(**kw)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device="cpu")
+    window, batch = synthetic_window(np.random.default_rng(0), steps=130,
+                                     groups=5, endpoints=8, per_step=True,
+                                     device="cpu")
+    on_card = {k: x.to(cuda) for k, x in params.items()}
+    card_batch = batch._replace(mask=batch.mask.to(cuda),
+                                target=batch.target.to(cuda))
+    build.reset_launch_counts()
+    loss, grads = value_and_grad(model.loss, on_card, window.to(cuda),
+                                 card_batch)
+    counts = build.launch_counts()
+    assert (counts["flash_attention_stats"], counts["flash_bwd_dq"],
+            counts["flash_bwd_dkv"], counts["flash_attention"]) == (1, 1, 1, 0)
+    cpu_loss, cpu_grads = value_and_grad(model.loss, params, window, batch)
+    np.testing.assert_allclose(float(loss), float(cpu_loss), rtol=1e-4)
+    for name, g in grads.items():
+        assert parity.grads_close(_host(g), _host(cpu_grads[name])), name
+    new, _, _ = model.train_step(on_card, model.init_opt_state(on_card),
+                                 window.to(cuda), card_batch)
+    assert all(x.device.type == "cuda" and x.dtype == torch.bfloat16
+               for x in new.values())

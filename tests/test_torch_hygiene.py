@@ -1,8 +1,9 @@
 """Hygiene of the PyTorch port: it stands alone, and nothing falls back.
 
-- No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
-  the JAX package (``aws_global_accelerator_controller_tpu``).
-- The port imports with both made unimportable.
+- No module of the port, and not ``chip_smoke.py``, imports ``jax``, the
+  JAX package (``aws_global_accelerator_controller_tpu``), ``optax`` or
+  ``orbax``, none of which the machine with the card has.
+- The port imports with all of them made unimportable.
 - With no CUDA device, an entry point called with its default device
   raises instead of running on the CPU; a kernel wrapper given a tensor
   that is neither on the CPU nor on CUDA raises too.
@@ -39,6 +40,9 @@ from aws_global_accelerator_controller_tpu_torch.models.traffic import (
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
     flash_attention,
+    flash_attention_stats,
+    flash_bwd_dkv,
+    flash_bwd_dq,
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     forward_cuda,
@@ -60,7 +64,8 @@ from aws_global_accelerator_controller_tpu_torch.reconcile.resident import (
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "aws_global_accelerator_controller_tpu_torch"
-FORBIDDEN = {"jax", "aws_global_accelerator_controller_tpu"}
+FORBIDDEN = {"jax", "aws_global_accelerator_controller_tpu", "optax",
+             "orbax"}
 
 
 def port_sources():
@@ -90,13 +95,14 @@ def test_port_imports_with_jax_unimportable():
                for p in sorted(PORT.rglob("*.py"))
                if p.name != "__main__.py"]
     code = ("import importlib, sys\n"
-            "for name in ('jax', 'aws_global_accelerator_controller_tpu'):\n"
+            f"for name in {sorted(FORBIDDEN)!r}:\n"
             "    sys.modules[name] = None\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
-            "assert 'jax' not in {k.split('.')[0] for k, v in "
-            "sys.modules.items() if v is not None}\n"
+            "loaded = {k.split('.')[0] for k, v in sys.modules.items() "
+            "if v is not None}\n"
+            f"assert not loaded & {FORBIDDEN!r}\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -132,6 +138,8 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(DeviceError):
         main(["eval", "--batches", "1"])
     with pytest.raises(DeviceError):
+        main(["train", "--model", "temporal", "--steps", "1"])
+    with pytest.raises(DeviceError):
         tdevice.resolve_device("mps")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
 
@@ -157,8 +165,19 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tdevice.probe_double(torch.empty((8, 128), **meta))
     qkv = torch.empty((64, 2, 16), dtype=torch.bfloat16, **meta)
+    stats = torch.empty((2, 64), **meta)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(qkv, qkv, qkv)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_stats(qkv, qkv, qkv)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dq(qkv, qkv, qkv, qkv, stats, stats, stats)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dkv(qkv, qkv, qkv, qkv, stats, stats, stats)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(*(x.requires_grad_(True) for x in (
+            torch.empty((64, 2, 16), dtype=torch.bfloat16, **meta)
+            for _ in range(3))))
     with pytest.raises(ValueError):
         plan_weights_cuda(torch.zeros((2, 2)), m)   # mixed devices
 
@@ -180,12 +199,17 @@ def test_cpu_calls_build_and_launch_nothing():
                                   supervision="sequence")
     window, wbatch = synthetic_window(np.random.default_rng(0), 64, 2, 2,
                                       per_step=True, device="cpu")
-    tmodel.loss(tmodel.init_params(torch.Generator().manual_seed(0),
-                                   device="cpu"), window, wbatch)
+    tparams = tmodel.init_params(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tmodel.loss(tparams, window, wbatch)
+    tmodel.train_step(tparams, tmodel.init_opt_state(tparams), window,
+                      wbatch)
+    model.train_step(params, model.init_opt_state(params), batch)
     counts = build.launch_counts()
     assert set(counts) >= {"probe_double", "plan_weights", "fused_mlp_plan",
                            "fused_mlp_scores", "row_splice",
-                           "flash_attention"}
+                           "flash_attention", "flash_attention_stats",
+                           "flash_bwd_dq", "flash_bwd_dkv"}
     assert not any(counts.values())
     if not torch.cuda.is_available():
         assert build._library is None

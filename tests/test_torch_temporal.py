@@ -14,7 +14,13 @@ seconds.  Tolerances, each stated where it is used:
 - the dense attention oracle: rtol = atol = 1e-5 (f32 both sides);
 - scores: 2 bf16 ulps (``parity.scores_close``);
 - weights: +-1 on at most 0.5% of cells (``parity.weights_close``);
-- losses: rtol 1e-4 (f32 sums in another order).
+- losses: rtol 1e-4 (f32 sums in another order);
+- the softmax stats m and l of the flash forward: rtol 1e-6 (s in
+  another f32 order moves the row max and sum by an f32 ulp or two);
+- attention gradients: 2 bf16 ulps of the magnitude each one sums
+  (``cuda_attention.flash_attention_bwd_magnitude``), at the reference's
+  block; against dense autograd, the gradient tolerance
+  (``parity.grads_close``).
 """
 import json
 
@@ -32,6 +38,9 @@ from aws_global_accelerator_controller_tpu.models.traffic import (
     Batch as JaxBatch,
 )
 from aws_global_accelerator_controller_tpu.ops.pallas_attention import (
+    _flash_fwd_padded,
+    _fused_bwd_eligible,
+    _prescale as jax_prescale,
     _resolve_blocks,
     flash_attention as jax_flash_attention,
 )
@@ -56,7 +65,10 @@ from aws_global_accelerator_controller_tpu_torch.models.temporal import (
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
     BLOCK_K,
     flash_attention,
+    flash_attention_bwd_magnitude,
+    flash_attention_bwd_plain,
     flash_attention_plain,
+    flash_attention_stats_plain,
 )
 from aws_global_accelerator_controller_tpu_torch.parallel.ring_attention \
     import attention_reference
@@ -122,6 +134,92 @@ def test_flash_plain_block_partition_only_rounds():
     mag = flash_attention_plain(q, k, v.abs(), True, block_k=130)
     assert parity.attention_close(flash_attention(q, k, v).float().numpy(),
                                   one.float().numpy(), mag.float().numpy())
+
+
+@pytest.mark.parametrize("T", [64, 72])
+def test_stats_plain_matches_jax_stats_kernel(T):
+    """The plain version of K6b against the reference's VJP forward
+    (``_stats_kernel`` in interpret mode, ``_flash_fwd_padded``) at its
+    block: the normalised o, and the stats m and l of the live rows."""
+    rng = np.random.default_rng(T + 1)
+    (jq, q), (jk, k), (jv, v) = (bf16_pair(rng, (T, 8, 32))
+                                 for _ in range(3))
+    block_q, block_k = _resolve_blocks(T, T, None, None)
+    heads = [jnp.transpose(x, (1, 0, 2)) for x in (jq, jk, jv)]
+    oh, jm, jl = _flash_fwd_padded(jax_prescale(heads[0]), *heads[1:], True,
+                                   block_q, block_k, True)
+    o, m, l = flash_attention_stats_plain(q, k, v, True, block_k)
+    assert (o.dtype, m.dtype, l.dtype) == (torch.bfloat16, torch.float32,
+                                           torch.float32)
+    assert tuple(m.shape) == tuple(l.shape) == (8, T)
+    want = np.asarray(jnp.transpose(oh, (1, 0, 2)).astype(jnp.float32))
+    mag = flash_attention_plain(q, k, v.abs(), True, block_k)
+    assert parity.attention_close(o.float().numpy(), want,
+                                  mag.float().numpy())
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm)[:, :T, 0],
+                               rtol=1e-6)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl)[:, :T, 0],
+                               rtol=1e-6)
+    # l >= 1 on every live row, so K6a's o (/ l) is K6b's (/ max(l, 1))
+    assert bool((l >= 1).all())
+    assert torch.equal(flash_attention_plain(q, k, v, True, block_k), o)
+
+
+def _plain_grads(q, k, v, do, block):
+    o, m, l = flash_attention_stats_plain(q, k, v, True, block)
+    return (flash_attention_bwd_plain(q, k, v, o, do, m, l, True, block,
+                                      block),
+            flash_attention_bwd_magnitude(q, k, v, o, do, m, l, True))
+
+
+@pytest.mark.parametrize("T,S,D,fused", [
+    (64, 40, 16, False), (64, 40, 32, False), (72, 40, 16, False),
+    (72, 40, 32, False), (72, 8, 32, True)])
+def test_bwd_plain_matches_jax_flash_vjp(T, S, D, fused):
+    """The plain two-sweep backward (K7, K8) against ``jax.vjp`` of the
+    reference's flash attention with a random bf16 cotangent, at the
+    reference's block.  At S = 40 heads the reference takes its two-sweep
+    route (``_dq_kernel``, ``_dkv_kernel``); at S = 8 its fused one-sweep
+    ``_dqkv_kernel``, which computes the same sums."""
+    rng = np.random.default_rng(T + S + D)
+    (jq, q), (jk, k), (jv, v), (jdo, do) = (bf16_pair(rng, (T, S, D))
+                                            for _ in range(4))
+    block, _ = _resolve_blocks(T, T, None, None)
+    tp = -(-T // block) * block
+    assert _fused_bwd_eligible(tp, tp, 128, S) == fused
+    _, vjp = jax.vjp(lambda *x: jax_flash_attention(*x, causal=True),
+                     jq, jk, jv)
+    got, mags = _plain_grads(q, k, v, do, block)
+    for name, g, w, mag in zip(("dq", "dk", "dv"), got, vjp(jdo), mags):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == (T, S, D)
+        assert parity.attention_close(
+            g.float().numpy(), np.asarray(w.astype(jnp.float32)),
+            mag.numpy()), name
+
+
+def test_flash_autograd_is_the_plain_backward_and_near_dense():
+    """Autograd through ``flash_attention`` runs the plain K6b, K7 and K8
+    on CPU tensors, bit for bit.  Against dense autograd through the
+    attention oracle (f32, no rounding of p, ds or o) it agrees within 3
+    bf16 ulps of the magnitude: the 2 of the flash rounding plus the
+    rounding of o, as for the forward (the model's parameter gradients
+    are held to the JAX package's flash-vs-dense tolerance in
+    ``test_torch_train.py``)."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (bf16_pair(rng, (72, 6, 32))[1] for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), flash_attention(q, k, v))
+    got = torch.autograd.grad(out, leaves, do)
+    want, mags = _plain_grads(q, k, v, do, BLOCK_K)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    dense = [x.clone().float().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(attention_reference(*dense, causal=True),
+                              dense, do.float())
+    for a, b, mag in zip(got, ref, mags):
+        assert parity.attention_close(a.float().numpy(), b.numpy(),
+                                      mag.numpy(), ulps=3)
 
 
 @pytest.mark.parametrize("causal", [True, False])
