@@ -72,8 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     plan.add_argument("--endpoints", type=int, default=16,
                       help="Endpoints per group.")
     plan.add_argument("--hidden", type=int, default=128,
-                      help="Model hidden width (the fused MLP kernel "
-                           "takes <= 128; use --serve dense above).")
+                      help="Model hidden width.")
     plan.add_argument("--window", type=int, default=64,
                       help="Telemetry window length (temporal model).")
     plan.add_argument("--seed", type=int, default=0,

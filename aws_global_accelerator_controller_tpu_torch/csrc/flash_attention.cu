@@ -39,8 +39,10 @@
 // grid of (head, q block, k block) with the running (m, l, acc) in VMEM
 // scratch between grid steps.  Here one CTA of four warps owns one
 // (head, 64-row q block), reads the strided [T, S, D] layout in place
-// (no transposes, no padding in memory: D pads to 16, 32, 64 or 128 only
-// in shared memory and registers, with zeros) and loops over its own
+// (no transposes; D pads to 16, 32, 64 or 128 only in shared memory and
+// registers, with zeros, and a wider head runs in chunks of 128 output
+// columns, one CTA each, its scores contracting over every chunk,
+// restaged with each K block) and loops over its own
 // live K blocks, skipping those wholly in its future, so the causal
 // triangle needs no block table.  The running state lives in registers:
 // each warp owns 16 query rows; s and o are mma.sync m16n8k16 bf16 tiles
@@ -57,7 +59,9 @@ namespace {
 using namespace agac_flash;
 
 // kStats: K6b (write m and l, divide by max(l, 1)); else K6a.
-template <int kDPad, bool kStats>
+// kChunked: D > 128, so kDPad = 128 and blockIdx.z picks the output
+// columns [128 z, 128 z + 128); the scores contract over every chunk.
+template <int kDPad, bool kStats, bool kChunked>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -79,14 +83,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int tq = lane % 4;                     // column pair within a tile
   const int row0 = q0 + warp * 16 + g;         // this lane's two rows:
   const int row1 = row0 + 8;                   // row0 and row0 + 8
+  const int oc = kChunked ? blockIdx.z * kDPad : 0;   // output columns
 
-  // q' = bf16(q * scale), staged through ks into A fragments
-  load_tile<kDPad, kStride, true>(ks, q, q0, T, S, D, s, scale);
-  __syncthreads();
-  uint32_t qa[kSteps][4];
+  // q' = bf16(q * scale), staged through ks into A fragments (chunked:
+  // restaged with each K block, chunk by chunk)
+  uint32_t qa[kChunked ? 1 : kSteps][4];
+  if constexpr (!kChunked) {
+    load_tile<kDPad, kStride, true>(ks, q, q0, T, S, D, s, scale);
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-    a_frag(qa[kk], ks, kStride, warp * 16, kk);
+    for (int kk = 0; kk < kSteps; ++kk)
+      a_frag(qa[kk], ks, kStride, warp * 16, kk);
+  }
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
@@ -99,19 +107,41 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int last_kb = causal ? qb : n_kb - 1;
   for (int kb = 0; kb <= last_kb; ++kb) {
     const int k0 = kb * kBlock;
-    __syncthreads();   // every warp is done with the previous tiles
-    load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f);
-    load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f);
-    __syncthreads();
 
     // s = q' . k^T: 16 rows x 64 keys per warp
     float sc[kKTiles][4];
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
+    for (int nt = 0; nt < kKTiles; ++nt)
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    if constexpr (kChunked) {
+      // q' chunk in vs, k chunk in ks; then v's output chunk in vs
+      for (int c = 0; c < D; c += kDPad) {
+        __syncthreads();
+        load_tile<kDPad, kStride, true>(vs, q, q0, T, S, D, s, scale, c);
+        load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f, c);
+        __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        mma_nk(sc[nt], qa[kk], ks, kStride, nt * 8, kk);
+        for (int kk = 0; kk < kSteps; ++kk) {
+          a_frag(qa[0], vs, kStride, warp * 16, kk);
+#pragma unroll
+          for (int nt = 0; nt < kKTiles; ++nt)
+            mma_nk(sc[nt], qa[0], ks, kStride, nt * 8, kk);
+        }
+      }
+      __syncthreads();
+      load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f, oc);
+      __syncthreads();
+    } else {
+      __syncthreads();   // every warp is done with the previous tiles
+      load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f);
+      load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f);
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < kKTiles; ++nt) {
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk)
+          mma_nk(sc[nt], qa[kk], ks, kStride, nt * 8, kk);
+      }
     }
 
     // mask, then the online softmax of _attend_step._fold
@@ -176,14 +206,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int row = r ? row1 : row0;
     if (row >= T) continue;
     const float den = kStats ? fmaxf(l[r], 1.f) : l[r];
-    if (kStats && tq == 0) {    // the four lanes of a row hold one m, l
+    // the four lanes of a row hold one m, l; output chunk 0 writes them
+    if (kStats && tq == 0 && oc == 0) {
       m_out[static_cast<long long>(s) * T + row] = m[r];
       l_out[static_cast<long long>(s) * T + row] = l[r];
     }
     __nv_bfloat16* orow = o + (static_cast<long long>(row) * S + s) * D;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
-      const int d = nt * 8 + 2 * tq;
+      const int d = oc + nt * 8 + 2 * tq;
       if (d < D)
         *reinterpret_cast<uint32_t*>(orow + d) =
             pack_bf16(acc[nt][2 * r] / den, acc[nt][2 * r + 1] / den);
@@ -191,12 +222,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-template <int kDPad, bool kStats>
+template <int kDPad, bool kStats, bool kChunked = false>
 int launch(const void* q, const void* k, const void* v, void* o, void* m,
            void* l, int T, int S, int D, float scale, int causal,
            cudaStream_t stream) {
-  const dim3 grid(S, (T + kBlock - 1) / kBlock);
-  flash_fwd_kernel<kDPad, kStats><<<grid, kThreads, 0, stream>>>(
+  const dim3 grid(S, (T + kBlock - 1) / kBlock, kChunked ? d_chunks(D) : 1);
+  flash_fwd_kernel<kDPad, kStats, kChunked><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -216,14 +247,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* m,
     return launch<32, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
   if (D <= 64)
     return launch<64, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
-  return launch<128, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
+  if (D <= kMaxDPad)
+    return launch<128, kStats>(q, k, v, o, m, l, T, S, D, scale, causal, st);
+  return launch<kMaxDPad, kStats, true>(q, k, v, o, m, l, T, S, D, scale,
+                                        causal, st);
 }
 
 }  // namespace
 
 // The wrapper (ops/cuda_attention.py) checks: q, k, v, o contiguous bf16
-// [T, S, D] on one device, 16-byte aligned, 8 <= D <= 128 with D % 8 == 0;
-// m and l contiguous f32 [S, T].
+// [T, S, D] on one device, 16-byte aligned, D a multiple of 8 (it pads
+// other widths; scale is the true width's); m and l contiguous f32 [S, T].
 extern "C" int agac_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int T, int S,
                                     int D, float scale, int causal,

@@ -47,6 +47,11 @@
 //   dp^T tiles of a half, 32 registers, fit beside the 128 of dk and dv at
 //   D = 128.  K blocks launch longest first (block 0 has the most q blocks
 //   when causal), the mirror of the forward's order.
+// A head wider than 128 runs in chunks of 128 output columns, one CTA
+// each (a third grid dimension): s and dp (s^T and dp^T) contract over
+// every chunk in ascending order, so each chunk rebuilds the same p and
+// ds bit for bit at the price of one more pass over the scores per
+// chunk; the four tiles are then restaged chunk by chunk.
 // The four tiles a CTA reads (q', do, k, v) stage through shared memory
 // with plain 16-byte loads; every product is mma.sync m16n8k16 with its
 // fragments read from those tiles, and p or ds repacks from the
@@ -68,7 +73,9 @@ constexpr int smem_bytes() {
   return 4 * kBlock * (kDPad + 8) * 2 + 3 * kBlock * 4;
 }
 
-template <int kDPad>
+// kChunked: D > 128, so kDPad = 128 and blockIdx.z picks the output
+// columns [128 z, 128 z + 128); s and dp contract over every chunk.
+template <int kDPad, bool kChunked>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
@@ -96,9 +103,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int tq = lane % 4;
   const int row0 = q0 + warp * 16 + g;         // this lane's two rows
   const int row1 = row0 + 8;
+  const int oc = kChunked ? blockIdx.z * kDPad : 0;   // output columns
 
-  load_tile<kDPad, kStride, true>(qs, q, q0, T, S, D, s, scale);
-  load_tile<kDPad, kStride, false>(dos, dout, q0, T, S, D, s, 1.f);
+  if constexpr (!kChunked) {
+    load_tile<kDPad, kStride, true>(qs, q, q0, T, S, D, s, scale);
+    load_tile<kDPad, kStride, false>(dos, dout, q0, T, S, D, s, 1.f);
+  }
   // the rows' stats; a padded row (never written) computes with
   // m = 0, l = 1, dvec = 0 on zero q' and do, and is never stored
   float mr[2], lr[2], dr[2];
@@ -120,27 +130,39 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int last_kb = causal ? qb : n_kb - 1;
   for (int kb = 0; kb <= last_kb; ++kb) {
     const int k0 = kb * kBlock;
-    __syncthreads();   // every warp is done with the previous tiles
-    load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f);
-    load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f);
-    __syncthreads();
 
-    // s = q'.k^T and dp = do.v^T: 16 rows x 64 keys per warp
+    // s = q'.k^T and dp = do.v^T: 16 rows x 64 keys per warp, over the
+    // column chunks in order (one chunk unless kChunked)
     float sc[kKTiles][4], dp[kKTiles][4];
 #pragma unroll
     for (int nt = 0; nt < kKTiles; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) sc[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t qa[4], da[4];
-      a_frag(qa, qs, kStride, warp * 16, kk);
-      a_frag(da, dos, kStride, warp * 16, kk);
-#pragma unroll
-      for (int nt = 0; nt < kKTiles; ++nt) {
-        mma_nk(sc[nt], qa, ks, kStride, nt * 8, kk);
-        mma_nk(dp[nt], da, vs, kStride, nt * 8, kk);
+    for (int c = 0; c < (kChunked ? D : 1); c += kDPad) {
+      __syncthreads();   // every warp is done with the previous tiles
+      if constexpr (kChunked) {
+        load_tile<kDPad, kStride, true>(qs, q, q0, T, S, D, s, scale, c);
+        load_tile<kDPad, kStride, false>(dos, dout, q0, T, S, D, s, 1.f, c);
       }
+      load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f, c);
+      load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f, c);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t qa[4], da[4];
+        a_frag(qa, qs, kStride, warp * 16, kk);
+        a_frag(da, dos, kStride, warp * 16, kk);
+#pragma unroll
+        for (int nt = 0; nt < kKTiles; ++nt) {
+          mma_nk(sc[nt], qa, ks, kStride, nt * 8, kk);
+          mma_nk(dp[nt], da, vs, kStride, nt * 8, kk);
+        }
+      }
+    }
+    if constexpr (kChunked) {   // k's output chunk for ds.k
+      __syncthreads();
+      load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f, oc);
+      __syncthreads();
     }
 
     // p = exp(s - m) / max(l, 1); ds = p * (dp - dvec), kept in sc
@@ -176,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     __nv_bfloat16* out = dq + (static_cast<long long>(row) * S + s) * D;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
-      const int d = nt * 8 + 2 * tq;
+      const int d = oc + nt * 8 + 2 * tq;
       if (d < D)
         *reinterpret_cast<uint32_t*>(out + d) = pack_bf16(
             acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
@@ -184,7 +206,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
-template <int kDPad>
+// kChunked as in flash_bwd_dq_kernel: s^T and dp^T contract over every
+// column chunk, dk and dv are the chunk blockIdx.z.
+template <int kDPad, bool kChunked>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
@@ -216,9 +240,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int tq = lane % 4;
   const int key0 = k0 + warp * 16 + g;         // this lane's two keys
   const int key1 = key0 + 8;
+  const int oc = kChunked ? blockIdx.z * kDPad : 0;   // output columns
 
-  load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f);
-  load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f);
+  if constexpr (!kChunked) {
+    load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f);
+    load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f);
+  }
 
   float dka[kDTiles][4], dva[kDTiles][4];
 #pragma unroll
@@ -230,8 +257,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   for (int qb = causal ? kb : 0; qb < n_qb; ++qb) {
     const int q0 = qb * kBlock;
     __syncthreads();   // every warp is done with the previous q block
-    load_tile<kDPad, kStride, true>(qs, q, q0, T, S, D, s, scale);
-    load_tile<kDPad, kStride, false>(dos, dout, q0, T, S, D, s, 1.f);
+    if constexpr (!kChunked) {
+      load_tile<kDPad, kStride, true>(qs, q, q0, T, S, D, s, scale);
+      load_tile<kDPad, kStride, false>(dos, dout, q0, T, S, D, s, 1.f);
+    }
     for (int i = threadIdx.x; i < kBlock; i += kThreads) {
       const int row = q0 + i;
       const long long j = static_cast<long long>(s) * T + row;
@@ -249,15 +278,26 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       for (int nt = 0; nt < kQTiles; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
+      for (int c = 0; c < (kChunked ? D : 1); c += kDPad) {
+        if constexpr (kChunked) {   // all four tiles of chunk c
+          __syncthreads();
+          load_tile<kDPad, kStride, false>(ks, k, k0, T, S, D, s, 1.f, c);
+          load_tile<kDPad, kStride, false>(vs, v, k0, T, S, D, s, 1.f, c);
+          load_tile<kDPad, kStride, true>(qs, q, q0, T, S, D, s, scale, c);
+          load_tile<kDPad, kStride, false>(dos, dout, q0, T, S, D, s, 1.f,
+                                           c);
+          __syncthreads();
+        }
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t ka[4], va[4];
-        a_frag(ka, ks, kStride, warp * 16, kk);
-        a_frag(va, vs, kStride, warp * 16, kk);
+        for (int kk = 0; kk < kSteps; ++kk) {
+          uint32_t ka[4], va[4];
+          a_frag(ka, ks, kStride, warp * 16, kk);
+          a_frag(va, vs, kStride, warp * 16, kk);
 #pragma unroll
-        for (int nt = 0; nt < kQTiles; ++nt) {
-          mma_nk(st[nt], ka, qs, kStride, h + nt * 8, kk);
-          mma_nk(dpt[nt], va, dos, kStride, h + nt * 8, kk);
+          for (int nt = 0; nt < kQTiles; ++nt) {
+            mma_nk(st[nt], ka, qs, kStride, h + nt * 8, kk);
+            mma_nk(dpt[nt], va, dos, kStride, h + nt * 8, kk);
+          }
         }
       }
 
@@ -276,6 +316,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
           st[nt][i] = p;
           dpt[nt][i] = p * (dpt[nt][i] - dvs[c]);
         }
+      }
+
+      if constexpr (kChunked) {   // q' and do of the output chunk
+        __syncthreads();
+        load_tile<kDPad, kStride, true>(qs, q, q0, T, S, D, s, scale, oc);
+        load_tile<kDPad, kStride, false>(dos, dout, q0, T, S, D, s, 1.f, oc);
+        __syncthreads();
       }
 
       // dv += bf16(p^T).do and dk += bf16(ds^T).q': do and q' are the B
@@ -302,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const long long off = (static_cast<long long>(key) * S + s) * D;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
-      const int d = nt * 8 + 2 * tq;
+      const int d = oc + nt * 8 + 2 * tq;
       if (d < D) {
         *reinterpret_cast<uint32_t*>(dk + off + d) =
             pack_bf16(dka[nt][2 * r], dka[nt][2 * r + 1]);
@@ -330,17 +377,18 @@ int allow_smem(Kernel kernel, int bytes, unsigned* allowed) {
   return 0;
 }
 
-template <int kDPad>
+template <int kDPad, bool kChunked = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* m, const void* l, const void* dvec, void* dq,
               int T, int S, int D, float scale, int causal,
               cudaStream_t stream) {
   static unsigned allowed = 0;
   constexpr int bytes = smem_bytes<kDPad>();
-  const int err = allow_smem(flash_bwd_dq_kernel<kDPad>, bytes, &allowed);
+  const int err =
+      allow_smem(flash_bwd_dq_kernel<kDPad, kChunked>, bytes, &allowed);
   if (err) return err;
-  const dim3 grid(S, (T + kBlock - 1) / kBlock);
-  flash_bwd_dq_kernel<kDPad><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(S, (T + kBlock - 1) / kBlock, kChunked ? d_chunks(D) : 1);
+  flash_bwd_dq_kernel<kDPad, kChunked><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -350,17 +398,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kDPad>
+template <int kDPad, bool kChunked = false>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* m, const void* l,
                const void* dvec, void* dk, void* dv, int T, int S, int D,
                float scale, int causal, cudaStream_t stream) {
   static unsigned allowed = 0;
   constexpr int bytes = smem_bytes<kDPad>();
-  const int err = allow_smem(flash_bwd_dkv_kernel<kDPad>, bytes, &allowed);
+  const int err =
+      allow_smem(flash_bwd_dkv_kernel<kDPad, kChunked>, bytes, &allowed);
   if (err) return err;
-  const dim3 grid(S, (T + kBlock - 1) / kBlock);
-  flash_bwd_dkv_kernel<kDPad><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(S, (T + kBlock - 1) / kBlock, kChunked ? d_chunks(D) : 1);
+  flash_bwd_dkv_kernel<kDPad, kChunked><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -374,8 +423,9 @@ int launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 
 // The wrapper (ops/cuda_attention.py) checks: q, k, v, do and the outputs
-// contiguous bf16 [T, S, D] on one device, 16-byte aligned, 8 <= D <= 128
-// with D % 8 == 0; m, l and dvec contiguous f32 [S, T].
+// contiguous bf16 [T, S, D] on one device, 16-byte aligned, D a multiple
+// of 8 (it pads other widths; scale is the true width's); m, l and dvec
+// contiguous f32 [S, T].
 extern "C" int agac_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* m,
                                  const void* l, const void* dvec, void* dq,
@@ -391,8 +441,11 @@ extern "C" int agac_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch_dq<64>(q, k, v, dout, m, l, dvec, dq, T, S, D, scale,
                          causal, st);
-  return launch_dq<128>(q, k, v, dout, m, l, dvec, dq, T, S, D, scale,
-                        causal, st);
+  if (D <= kMaxDPad)
+    return launch_dq<128>(q, k, v, dout, m, l, dvec, dq, T, S, D, scale,
+                          causal, st);
+  return launch_dq<kMaxDPad, true>(q, k, v, dout, m, l, dvec, dq, T, S, D,
+                                   scale, causal, st);
 }
 
 extern "C" int agac_flash_bwd_dkv(const void* q, const void* k,
@@ -411,6 +464,9 @@ extern "C" int agac_flash_bwd_dkv(const void* q, const void* k,
   if (D <= 64)
     return launch_dkv<64>(q, k, v, dout, m, l, dvec, dk, dv, T, S, D, scale,
                           causal, st);
-  return launch_dkv<128>(q, k, v, dout, m, l, dvec, dk, dv, T, S, D, scale,
-                         causal, st);
+  if (D <= kMaxDPad)
+    return launch_dkv<128>(q, k, v, dout, m, l, dvec, dk, dv, T, S, D,
+                           scale, causal, st);
+  return launch_dkv<kMaxDPad, true>(q, k, v, dout, m, l, dvec, dk, dv, T, S,
+                                    D, scale, causal, st);
 }

@@ -3,7 +3,7 @@ the two Adam optimizers and the train step (the JAX package's
 ``models/common.py``).
 
 The optimizers are plain functions on tensors under ``torch.no_grad()``
-and reproduce the reference's arithmetic:
+and reproduce the reference's arithmetic, bit for bit on the CPU:
 
 - :func:`adam` is ``optax.adam`` (optax 0.2.6, ``scale_by_adam`` then
   ``scale_by_learning_rate``): moments in the params' dtype (bf16 here),
@@ -15,13 +15,24 @@ and reproduce the reference's arithmetic:
   moments over one vector raveled in ``ravel_pytree``'s order (dict keys
   sorted), the step cast to the grads' dtype.
 
-The scalar constants are computed on the host in float32 (numpy), and
-divisions divide by a tensor, never by a Python number (the CUDA kernel
+How XLA on the CPU computes, and so how these functions do:
+
+- every elementwise op runs in float32 (a bf16 op on f32 copies of its
+  operands, rounded once to bf16), with subnormal operands read as zero
+  and subnormal results flushed to zero (:func:`_flush` after each op;
+  the grads and params are flushed on the way in);
+- sqrt is correctly rounded; torch's float32 sqrt on the CPU is not
+  always (one ulp off on about 0.6% of values in [0, 1e-3)), so the sqrt
+  is taken in float64 and rounded to float32, which is exact;
+- ``b ** count`` is the C library's ``powf`` (:func:`_bias`).
+
+Divisions divide by a tensor, never by a Python number (the CUDA kernel
 for a scalar divisor multiplies by its reciprocal, which is not the
-reference's division).
+reference's division).  The same code runs on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple
 
 import numpy as np
@@ -73,15 +84,39 @@ def _const(x: float, like: torch.Tensor) -> float:
     return float(torch.tensor(x, dtype=like.dtype))
 
 
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) with its subnormal values replaced by a zero of the
+    same sign, as XLA's CPU backend flushes denormals."""
+    return torch.where(x.abs() < _TINY, x * 0, x)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An op's float32 result, flushed, rounded to ``dtype`` and carried
+    on in float32 (exact) for the next op."""
+    return _flush(x).to(dtype).float()
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt of a float32 tensor, through
+    float64 (a square root rounded twice, 53 then 24 bits, is rounded
+    once)."""
+    return torch.sqrt(x.double()).float()
+
+
 def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
-    """x / d as a true division by a 0-dim tensor on x's device, d
-    rounded to x's dtype first (the reference casts its bias correction
-    to the moment's dtype)."""
+    """x / d (float32) as a true division by a 0-dim tensor on x's
+    device."""
     return x / x.new_full((), d)
 
 
 def _bias(decay: float, count: int) -> float:
-    """1 - decay**count in float32."""
+    """1 - decay**count in float32.  numpy's float32 scalar power is the
+    C library's ``powf``, which is what XLA's CPU backend calls for a
+    float32 pow (its vectorized array power is not, and differs in the
+    last bit at some counts)."""
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
@@ -99,14 +134,18 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         count = state.count + 1
         c1, c2 = _bias(b1, count), _bias(b2, count)
         mu, nu, updates = {}, {}, {}
-        for k, g in grads.items():
-            mu[k] = (_const(1 - b1, g) * g) + (_const(b1, g) * state.mu[k])
-            nu[k] = (_const(1 - b2, g) * (g * g)) + (_const(b2, g)
-                                                     * state.nu[k])
-            m_hat = _divide(mu[k], c1)
-            v_hat = _divide(nu[k], c2)
-            u = m_hat / (torch.sqrt(v_hat) + _const(eps, g))
-            updates[k] = _const(-learning_rate, g) * u
+        for k, grad in grads.items():
+            rnd = functools.partial(_rounded, dtype=grad.dtype)
+            g = _flush(grad.float())
+            m = rnd(rnd(_const(1 - b1, grad) * g)
+                    + rnd(_const(b1, grad) * state.mu[k].float()))
+            v = rnd(rnd(_const(1 - b2, grad) * rnd(g * g))
+                    + rnd(_const(b2, grad) * state.nu[k].float()))
+            m_hat = rnd(_divide(m, _const(c1, grad)))
+            v_hat = rnd(_divide(v, _const(c2, grad)))
+            u = rnd(m_hat / rnd(rnd(_sqrt(v_hat)) + _const(eps, grad)))
+            updates[k] = rnd(_const(-learning_rate, grad) * u).to(grad.dtype)
+            mu[k], nu[k] = m.to(grad.dtype), v.to(grad.dtype)
         return updates, AdamState(count, mu, nu)
 
     return Optimizer(init, update)
@@ -140,13 +179,15 @@ def flat_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     @torch.no_grad()
     def update(grads: Params, state: FlatAdamState, params=None):
         flat_g = ravel(grads)
-        g = flat_g.float()
+        g = _flush(flat_g.float())
         count = state.count + 1
-        mu = b1 * state.mu + (1.0 - b1) * g
-        nu = b2 * state.nu + (1.0 - b2) * (g * g)
-        mu_hat = _divide(mu, _bias(b1, count))
-        nu_hat = _divide(nu, _bias(b2, count))
-        step = -learning_rate * mu_hat / (torch.sqrt(nu_hat) + eps)
+        mu = _flush(_flush(b1 * state.mu) + _flush((1.0 - b1) * g))
+        nu = _flush(_flush(b2 * state.nu)
+                    + _flush((1.0 - b2) * _flush(g * g)))
+        mu_hat = _flush(_divide(mu, _bias(b1, count)))
+        nu_hat = _flush(_divide(nu, _bias(b2, count)))
+        step = _flush(_flush(-learning_rate * mu_hat)
+                      / _flush(_sqrt(nu_hat) + eps))
         return (unravel(step.to(flat_g.dtype), grads),
                 FlatAdamState(count, mu, nu))
 
@@ -165,8 +206,11 @@ def make_optimizer(name: str, learning_rate: float) -> Optimizer:
 
 @torch.no_grad()
 def apply_updates(params: Params, updates: Params) -> Params:
-    """``optax.apply_updates``: (p + u) in p's dtype."""
-    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+    """``optax.apply_updates``: (p + u) in p's dtype, computed in float32
+    on flushed operands and flushed (the optimizers' arithmetic)."""
+    return {k: _flush(_flush(p.float()) + _flush(updates[k].float()))
+            .to(torch.promote_types(p.dtype, updates[k].dtype)).to(p.dtype)
+            for k, p in params.items()}
 
 
 def value_and_grad(loss_fn: Callable, params: Params, *data):

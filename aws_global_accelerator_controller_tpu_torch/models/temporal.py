@@ -14,10 +14,14 @@ attention heads: q = k = v = [T, S, D].
   else the dense reference: kernel K6a for a forward alone; under
   autograd (``train_step``) kernel K6b, and K7 and K8 in the backward.
 
+- ``head="fused"`` / ``"fused_always"`` scores a [T, S, D]
+  representation through ``ops.cuda_head.score_head``: kernel K10, and
+  K11 in the backward (``_use_fused_head``).
+
 Matmuls take bf16 operands with f32 sums and round to bf16, as XLA's
-bf16 dots do, and differentiate as those dots do.  The fused score head
-(K10/K11), the fused one-sweep backward (K9) that ``attention_chunk``
-exists for in training, and the sharded planner wait for later slices.
+bf16 dots do, and differentiate as those dots do.  The fused one-sweep
+backward (K9) that ``attention_chunk`` exists for in training, and the
+sharded planner, wait for later slices.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import Device, resolve_device
 from ..ops.cuda_attention import flash_attention
-from ..ops.cuda_mlp import bf16_linear, bf16_matmul, relu
+from ..ops.cuda_head import score_head, score_head_plain
+from ..ops.cuda_mlp import bf16_matmul
 from ..ops.weights import plan_weights
 from ..parallel.ring_attention import attention_reference
 from .common import TrainableModel, make_optimizer, masked_ce_loss
@@ -51,11 +56,17 @@ class TemporalTrafficModel(TrainableModel):
     ``FLASH_MIN_WINDOW`` (on CPU tensors their plain versions; the card
     is this port's kernel device, so there is no backend gate),
     ``reference`` the dense oracle.  ``supervision``: ``last`` scores the
-    final step, ``sequence`` every step.  ``head``: only ``reference``
-    (dense) runs; the fused head is kernel K10, which is not ported.
-    ``remat`` recomputes the dense head in the backward of a sequence
-    loss (``torch.utils.checkpoint``, as the reference's
-    ``jax.checkpoint``): the same numbers, less memory.
+    final step, ``sequence`` every step.  ``head``: ``reference`` (the
+    default) is the dense head; ``fused_always`` scores every [T, S, D]
+    representation through the fused head (kernels K10 and K11 on the
+    card, their plain versions on the CPU), and ``fused`` does so when the
+    representation lies on a CUDA device, as the reference's ``fused``
+    does on its TPU rung; 2-D representations (``scores``,
+    ``scores_last``) always take the dense head.  ``remat`` recomputes
+    the dense head in the backward of a sequence loss
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``):
+    the same numbers, less memory; a fused head recomputes its hidden in
+    its own backward, so remat skips it.
     ``attention_chunk`` > 0 splits the streams into chunks of at most
     that many heads, one kernel call each (exact: heads are
     independent); ``train_step`` refuses it, since its purpose there is
@@ -72,11 +83,7 @@ class TemporalTrafficModel(TrainableModel):
             raise ValueError(f"unknown attention impl {attention!r}")
         if supervision not in ("last", "sequence"):
             raise ValueError(f"unknown supervision {supervision!r}")
-        if head in ("fused", "fused_always"):
-            raise ValueError(
-                f"head={head!r} needs the fused score-head kernel K10, "
-                f"which is not ported (ROADMAP.md B5)")
-        if head != "reference":
+        if head not in ("reference", "fused", "fused_always"):
             raise ValueError(f"unknown head impl {head!r}")
         if attention_chunk < 0:
             raise ValueError("attention_chunk must be >= 0")
@@ -154,12 +161,25 @@ class TemporalTrafficModel(TrainableModel):
         qkv = bf16_matmul(x, wqkv)                     # [T, S, 3D]
         return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
 
+    def _use_fused_head(self, rep: torch.Tensor) -> bool:
+        """One predicate for the head dispatch and ``scores_seq``'s remat
+        decision (the reference's ``_use_fused_head``): 3-D
+        representations only, always under ``fused_always``, and under
+        ``fused`` on a CUDA device (the port's counterpart of the
+        reference's TPU-rung test)."""
+        return (rep.dim() == 3
+                and (self.head == "fused_always"
+                     or (self.head == "fused"
+                         and rep.device.type == "cuda")))
+
     def _head(self, params: Params, rep: torch.Tensor) -> torch.Tensor:
-        """[..., D] attended representation -> [...] float32 score (the
-        dense head)."""
-        h = relu(bf16_linear(rep.to(torch.bfloat16), params["w1"],
-                             params["b1"]))
-        return bf16_linear(h, params["w2"], params["b2"])[..., 0].float()
+        """[..., D] attended representation -> [...] float32 score: the
+        fused head where ``_use_fused_head`` says so, else the dense head
+        (the fused head's plain version under plain autograd)."""
+        head = (score_head if self._use_fused_head(rep)
+                else score_head_plain)
+        return head(rep, params["w1"], params["b1"], params["w2"],
+                    params["b2"])
 
     def scores(self, params: Params, window: torch.Tensor) -> torch.Tensor:
         """[T, G, E, F] -> [G, E] float32 scores via the full causal
@@ -187,9 +207,10 @@ class TemporalTrafficModel(TrainableModel):
         t, g, e, f = window.shape
         q, k, v = self._embed_qkv(params, window)
         attended = self._attend(q, k, v)
-        if self.remat and torch.is_grad_enabled():
+        if (self.remat and torch.is_grad_enabled()
+                and not self._use_fused_head(attended)):
             # the [T, S, H] hidden is recomputed in the backward instead
-            # of kept (the reference's jax.checkpoint of the head)
+            # of kept (the reference's jax.checkpoint of the dense head)
             scores = checkpoint(self._head, params, attended,
                                 use_reentrant=False)
         else:
@@ -217,12 +238,13 @@ class TemporalTrafficModel(TrainableModel):
                    batch: Batch):
         """One optimizer step on (window, batch): (params, opt_state,
         loss at the old params).  Under sequence supervision with the
-        flash path, the step runs K6b, K7 and K8 once each."""
+        flash path, the step runs K6b, K7 and K8 once each, and with a
+        fused head on the card K10 and K11 once each."""
         if self.attention_chunk:
             raise ValueError(
                 "attention_chunk > 0 in training is for the fused one-sweep "
                 "flash backward (kernel K9), which is not ported "
-                "(ROADMAP.md B4); train with attention_chunk=0")
+                "(ROADMAP.md B1); train with attention_chunk=0")
         return super().train_step(params, opt_state, window, batch)
 
 

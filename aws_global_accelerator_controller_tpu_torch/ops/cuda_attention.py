@@ -21,6 +21,11 @@ endpoint streams).  Like the reference's ``jax.custom_vjp`` (``:1038-
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs its plain version at the kernels' block, :data:`BLOCK_K`.
+The kernels take every head width D: a width that is not a multiple of
+8 is padded with zero columns on the way in (:func:`_pad_width`), which
+adds nothing to q.k^T or do.v^T, keeps the scale of the true D, and
+whose output columns are dropped; a width above 128 runs in 128-column
+chunks inside the kernels.
 
 Arithmetic, shared by the kernels and the plain versions (``_prescale``
 ``:346``, ``_attend_step`` ``:197``, the backward bodies ``:480-514``,
@@ -45,7 +50,7 @@ comparison with a kernel uses the kernel's :data:`BLOCK_K`.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,9 +58,8 @@ from ..kernels.build import Kernel, require_cuda
 
 #: rows of q and keys of k/v per tile of the kernels
 BLOCK_K = 64
-#: the largest head width the kernels take (they pad D to 16, 32, 64 or
-#: 128 in shared memory and registers)
-MAX_HEAD_DIM = 128
+#: the kernels read rows in 16-byte vectors: D in multiples of 8
+HEAD_DIM_MULTIPLE = 8
 
 _NEG_INF = -1e30
 
@@ -69,9 +73,16 @@ _FLASH_DQ = Kernel("flash_bwd_dq", "agac_flash_bwd_dq", [_P] * 8 + _SIZES)
 _FLASH_DKV = Kernel("flash_bwd_dkv", "agac_flash_bwd_dkv", [_P] * 9 + _SIZES)
 
 
-def _prescale(q: torch.Tensor) -> torch.Tensor:
-    """Fold 1/sqrt(D) into q with one rounding to q's dtype."""
-    return (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
+def _scale(x: torch.Tensor, scale: Optional[float]) -> float:
+    """The softmax scale: ``scale``, or 1/sqrt(D) of ``x``'s width."""
+    return x.shape[-1] ** -0.5 if scale is None else scale
+
+
+def _prescale(q: torch.Tensor, scale: Optional[float] = None
+              ) -> torch.Tensor:
+    """Fold the scale (1/sqrt(D) by default) into q with one rounding to
+    q's dtype."""
+    return (q.float() * _scale(q, scale)).to(q.dtype)
 
 
 def _heads(x: torch.Tensor) -> torch.Tensor:
@@ -90,19 +101,21 @@ def _scores(qh: torch.Tensor, kh: torch.Tensor, q_pos: torch.Tensor,
 
 def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, causal: bool = True,
-                                block_k: int = BLOCK_K
+                                block_k: int = BLOCK_K,
+                                scale: Optional[float] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """The plain version of kernels K6a and K6b: (o [T, H, D] in q's
     dtype, m [H, T] f32, l [H, T] f32), the online softmax folded over K
-    blocks of ``block_k`` keys, o divided by max(l, 1).
+    blocks of ``block_k`` keys, o divided by max(l, 1); ``scale``
+    defaults to 1/sqrt(D).
 
     Every query row folds every K block; a block wholly in a row's
     future has all its scores at -1e30, which leaves (m, l, acc) bit for
     bit unchanged, so this equals the kernels' skipping of such blocks.
     """
     T = q.shape[0]
-    qh, kh, vh = _heads(_prescale(q)), _heads(k), _heads(v)
+    qh, kh, vh = _heads(_prescale(q, scale)), _heads(k), _heads(v)
     H, _, D = qh.shape
     m = torch.full((H, T, 1), _NEG_INF, device=q.device)
     l = torch.zeros((H, T, 1), device=q.device)
@@ -122,11 +135,11 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          block_k: int = BLOCK_K) -> torch.Tensor:
+                          causal: bool = True, block_k: int = BLOCK_K,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The plain version of kernel K6a: [T, H, D] -> [T, H, D] in q's
     dtype (:func:`flash_attention_stats_plain` without the stats)."""
-    return flash_attention_stats_plain(q, k, v, causal, block_k)[0]
+    return flash_attention_stats_plain(q, k, v, causal, block_k, scale)[0]
 
 
 def attention_dvec(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -150,14 +163,16 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal: bool = True,
-                       block_q: int = BLOCK_K,
-                       block_k: int = BLOCK_K) -> torch.Tensor:
+                       block_q: int = BLOCK_K, block_k: int = BLOCK_K,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """The plain version of kernel K7: dq [T, H, D] in q's dtype,
-    sum over K blocks of ``block_k`` of bf16(ds).k (f32), times D**-0.5
-    once, rounded; q rows in blocks of ``block_q`` (no effect on the
-    result, only on the memory it takes)."""
-    T, _, D = q.shape
-    qh, kh, vh, doh = _heads(_prescale(q)), _heads(k), _heads(v), _heads(do)
+    sum over K blocks of ``block_k`` of bf16(ds).k (f32), times the
+    scale (D**-0.5 by default) once, rounded; q rows in blocks of
+    ``block_q`` (no effect on the result, only on the memory it takes)."""
+    T = q.shape[0]
+    scale = _scale(q, scale)
+    qh, kh, vh, doh = (_heads(_prescale(q, scale)), _heads(k), _heads(v),
+                       _heads(do))
     dq = torch.zeros_like(qh)
     for i0 in range(0, T, block_q):
         rows = slice(i0, i0 + block_q)
@@ -165,17 +180,19 @@ def flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal: bool = True,
         ds = _bf16(ds)
         for j0 in range(0, T, block_k):
             dq[:, rows] += ds[..., j0:j0 + block_k] @ kh[:, j0:j0 + block_k]
-    return (dq * D ** -0.5).to(q.dtype).transpose(0, 1)
+    return (dq * scale).to(q.dtype).transpose(0, 1)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal: bool = True,
-                        block_q: int = BLOCK_K
+                        block_q: int = BLOCK_K,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of kernel K8: (dk, dv) [T, H, D] in k's and v's
     dtypes, sums over q blocks of ``block_q`` of bf16(ds)^T.q' and
     bf16(p)^T.do (f32), rounded."""
     T = q.shape[0]
-    qh, kh, vh, doh = _heads(_prescale(q)), _heads(k), _heads(v), _heads(do)
+    qh, kh, vh, doh = (_heads(_prescale(q, scale)), _heads(k), _heads(v),
+                       _heads(do))
     dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
     for i0 in range(0, T, block_q):
         rows = slice(i0, i0 + block_q)
@@ -186,7 +203,8 @@ def flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal: bool = True,
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, m, l, causal: bool = True,
-                              block_q: int = BLOCK_K, block_k: int = BLOCK_K
+                              block_q: int = BLOCK_K, block_k: int = BLOCK_K,
+                              scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The plain version of the two-sweep backward: (dq, dk, dv)
@@ -194,9 +212,9 @@ def flash_attention_bwd_plain(q, k, v, o, do, m, l, causal: bool = True,
     the stats m, l [H, T]."""
     dvec = attention_dvec(o, do)
     dq = flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal, block_q,
-                            block_k)
+                            block_k, scale)
     return (dq, *flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal,
-                                     block_q))
+                                     block_q, scale))
 
 
 def flash_attention_bwd_magnitude(q, k, v, o, do, m, l, causal: bool = True
@@ -234,9 +252,10 @@ def _check(name: str, *xs: torch.Tensor) -> Tuple[torch.device, int, int,
     if not all(x.is_contiguous() for x in xs):
         raise ValueError(f"{name}: the kernel takes contiguous q, k, v")
     T, H, D = xs[0].shape
-    if D > MAX_HEAD_DIM or D % 8:
-        raise ValueError(f"{name}: the kernel takes D <= {MAX_HEAD_DIM}, a "
-                         f"multiple of 8; got D={D}")
+    if D % HEAD_DIM_MULTIPLE:
+        raise ValueError(f"{name}: the kernel takes D a multiple of "
+                         f"{HEAD_DIM_MULTIPLE} (the wrappers pad it); got "
+                         f"D={D}")
     if -(-T // BLOCK_K) > 65535:
         raise ValueError(f"{name}: T={T} exceeds the kernel's grid "
                          f"({65535 * BLOCK_K} rows)")
@@ -260,20 +279,35 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
     return all(x.device.type == "cpu" for x in xs)
 
 
+def _pad_width(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """[T, H, D] tensors with D zero-padded to a multiple of
+    :data:`HEAD_DIM_MULTIPLE` (unchanged when it is one already)."""
+    pad = -xs[0].shape[-1] % HEAD_DIM_MULTIPLE
+    if pad == 0:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
+
+
+def _unpad(x: torch.Tensor, D: int) -> torch.Tensor:
+    """A kernel's [T, H, Dp] output cut back to the true width D."""
+    return x if x.shape[-1] == D else x[..., :D].contiguous()
+
+
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True
                             ) -> torch.Tensor:
     """q, k, v [T, H, D] bfloat16 -> [T, H, D] bfloat16: kernel K6a on
-    CUDA tensors (contiguous and 16-byte aligned, D <=
-    :data:`MAX_HEAD_DIM` and a multiple of 8), :func:`flash_attention_plain`
-    at :data:`BLOCK_K` on CPU tensors."""
+    CUDA tensors (contiguous and 16-byte aligned, any D),
+    :func:`flash_attention_plain` at :data:`BLOCK_K` on CPU tensors."""
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal, BLOCK_K)
-    dev, T, H, D = _check("flash_attention", q, k, v)
+    D = q.shape[-1]
+    q, k, v = _pad_width(q, k, v)
+    dev, T, H, Dp = _check("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if out.numel():
-        _FLASH(dev, q, k, v, out, T, H, D, D ** -0.5, int(causal))
-    return out
+        _FLASH(dev, q, k, v, out, T, H, Dp, D ** -0.5, int(causal))
+    return _unpad(out, D)
 
 
 def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -286,14 +320,16 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors."""
     if _on_cpu(q, k, v):
         return flash_attention_stats_plain(q, k, v, causal, BLOCK_K)
-    dev, T, H, D = _check("flash_attention_stats", q, k, v)
+    D = q.shape[-1]
+    q, k, v = _pad_width(q, k, v)
+    dev, T, H, Dp = _check("flash_attention_stats", q, k, v)
     out = torch.empty_like(q)
     m = torch.empty((H, T), dtype=torch.float32, device=dev)
     l = torch.empty((H, T), dtype=torch.float32, device=dev)
     if out.numel():
-        _FLASH_STATS(dev, q, k, v, out, m, l, T, H, D, D ** -0.5,
+        _FLASH_STATS(dev, q, k, v, out, m, l, T, H, Dp, D ** -0.5,
                      int(causal))
-    return out, m, l
+    return _unpad(out, D), m, l
 
 
 def flash_bwd_dq(q, k, v, do, m, l, dvec, causal: bool = True
@@ -304,13 +340,15 @@ def flash_bwd_dq(q, k, v, do, m, l, dvec, causal: bool = True
     tensors."""
     if _on_cpu(q, k, v, do, m, l, dvec):
         return flash_bwd_dq_plain(q, k, v, do, m, l, dvec, causal)
-    dev, T, H, D = _check("flash_bwd_dq", q, k, v, do)
+    D = q.shape[-1]
+    q, k, v, do = _pad_width(q, k, v, do)
+    dev, T, H, Dp = _check("flash_bwd_dq", q, k, v, do)
     _check_stats("flash_bwd_dq", dev, T, H, m, l, dvec)
     dq = torch.empty_like(q)
     if dq.numel():
-        _FLASH_DQ(dev, q, k, v, do, m, l, dvec, dq, T, H, D, D ** -0.5,
+        _FLASH_DQ(dev, q, k, v, do, m, l, dvec, dq, T, H, Dp, D ** -0.5,
                   int(causal))
-    return dq
+    return _unpad(dq, D)
 
 
 def flash_bwd_dkv(q, k, v, do, m, l, dvec, causal: bool = True
@@ -320,13 +358,15 @@ def flash_bwd_dkv(q, k, v, do, m, l, dvec, causal: bool = True
     on CPU tensors."""
     if _on_cpu(q, k, v, do, m, l, dvec):
         return flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal)
-    dev, T, H, D = _check("flash_bwd_dkv", q, k, v, do)
+    D = q.shape[-1]
+    q, k, v, do = _pad_width(q, k, v, do)
+    dev, T, H, Dp = _check("flash_bwd_dkv", q, k, v, do)
     _check_stats("flash_bwd_dkv", dev, T, H, m, l, dvec)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
-        _FLASH_DKV(dev, q, k, v, do, m, l, dvec, dk, dv, T, H, D, D ** -0.5,
-                   int(causal))
-    return dk, dv
+        _FLASH_DKV(dev, q, k, v, do, m, l, dvec, dk, dv, T, H, Dp,
+                   D ** -0.5, int(causal))
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 def flash_attention_bwd(q, k, v, o, do, m, l, causal: bool = True

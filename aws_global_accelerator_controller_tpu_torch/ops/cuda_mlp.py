@@ -7,7 +7,8 @@ the int32 weights leave the chip.  ``score_rows_cuda`` runs the same
 MLP on packed rows and returns the scores, for the fleet planner.  Both
 launch ``csrc/mlp.cu`` on CUDA tensors (see the bound and design notes
 there) and run their plain versions, :func:`forward_reference` and
-:func:`dense_scores`, on CPU tensors.
+:func:`dense_scores`, on CPU tensors.  The kernel takes any feature
+width F and hidden width H (it tiles both).
 
 Arithmetic order, shared by kernel and plain version: bf16 operands,
 f32 accumulation, each matmul rounded to bf16, the bf16 bias added with
@@ -31,11 +32,6 @@ from ..kernels.build import Kernel, require_cuda
 from .cuda_weights import plan_block
 
 Params = Dict[str, torch.Tensor]
-
-#: the kernel holds one hidden unit per thread of a 128-thread block
-MAX_HIDDEN = 128
-#: feature rows stage through shared memory 32 rows at a time
-MAX_FEATURES = 64
 
 _P = ctypes.c_void_p
 _MLP_PLAN = Kernel("fused_mlp_plan", "agac_mlp_plan",
@@ -100,9 +96,6 @@ def _kernel_params(name: str, params: Params, dev: torch.device):
         if p.dtype != torch.bfloat16 or tuple(p.shape) != want[k]:
             raise ValueError(f"{name}: {k} must be bfloat16 {want[k]}, got "
                              f"{p.dtype} {tuple(p.shape)}")
-    if H > MAX_HIDDEN or F > MAX_FEATURES:
-        raise ValueError(f"{name}: the kernel takes H <= {MAX_HIDDEN} and "
-                         f"F <= {MAX_FEATURES}, got H={H}, F={F}")
     return [p.contiguous() for p in ps], F, H
 
 

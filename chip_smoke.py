@@ -40,16 +40,24 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
    then times three steps;
 9. runs ``train --model mlp`` for 3 steps on the card and on the CPU
    (dense, as in the reference: no kernel);
-10. holds every kernel against its plain PyTorch version on the card, at
-    the shapes the paths give it, and times both (and, where one exists,
-    a PyTorch call computing the same function); then times the flash
-    kernel against the dense reference attention at short windows (the
-    ``FLASH_MIN_WINDOW`` crossover).
+10. trains ``TemporalTrafficModel(head="fused", supervision="sequence")``
+    at the train command's default shape for 10 steps on the card: one
+    launch each of the fused score head's forward (K10) and backward
+    (K11) a step, beside K6b, K7 and K8; then 3 steps on the card
+    against 3 on the CPU (``head="fused_always"``, the kernels' plain
+    versions), and one batch's loss and gradients against the dense head
+    on the card; and times 10 steps of the dense-head model beside it;
+11. holds every kernel against its plain PyTorch version on the card, at
+    the shapes the paths give it and at widths past one tile (K3 at
+    H = 256, the flash kernels at D = 160), and times both (and, where
+    one exists, a PyTorch call computing the same function); then times
+    the flash kernel against the dense reference attention at short
+    windows (the ``FLASH_MIN_WINDOW`` crossover).
 
-Before each of phases 1-9 every launch count is set to 0; after each the
-script fails unless every kernel that phase runs was launched (and, for
-the flash kernels in phases 4-9, launched exactly as often as the path
-calls them).  Phase 3 reads its counts after the last churn wave, demands
+Before each of phases 1-10 every launch count is set to 0; after each
+the script fails unless every kernel that phase runs was launched (and,
+for the flash and head kernels, launched exactly as often as the path
+calls them: the head kernels never outside phase 10).  Phase 3 reads its counts after the last churn wave, demands
 that the churn waves alone launched each of their kernels, and reports
 the full repack's launches apart.
 
@@ -115,6 +123,11 @@ SEQ_TRAIN_TIMED_STEPS = 3
 #: the flash kernels' launch-count names
 K6A, K6B, K7, K8 = ("flash_attention", "flash_attention_stats",
                     "flash_bwd_dq", "flash_bwd_dkv")
+#: the fused score head's launch-count names
+K10, K11 = "score_head_fwd", "score_head_bwd"
+#: widths past one tile of the kernels: K3's hidden layer, the flash
+#: kernels' heads
+WIDE_HIDDEN, WIDE_HEAD = 256, 160
 
 
 class SmokeError(RuntimeError):
@@ -368,13 +381,14 @@ def _k2_one(G, E, seed):
         bound_ms(G * E * 9, G * E * 8, F32_FLOP_PER_S))
 
 
-def _other_shape(main: dict, other: dict) -> dict:
+def _other_shape(main: dict, *others: dict) -> dict:
     same = ("name", "route", "source", "replaces", "launches")
     main["at_other_shapes"] = [{k: v for k, v in other.items()
-                                if k not in same}]
-    main["max_abs_err"] = max(main["max_abs_err"], other["max_abs_err"])
-    main["mismatch_frac"] = max(main["mismatch_frac"],
-                                other["mismatch_frac"])
+                                if k not in same} for other in others]
+    for other in others:
+        main["max_abs_err"] = max(main["max_abs_err"], other["max_abs_err"])
+        main["mismatch_frac"] = max(main["mismatch_frac"],
+                                    other["mismatch_frac"])
     return main
 
 
@@ -383,14 +397,14 @@ def _k2():
                         _k2_one(RESIDENT_GROUPS, RESIDENT_CAP, 2))
 
 
-def _mlp_params(seed):
+def _mlp_params(seed, H=128):
     import torch
 
     from aws_global_accelerator_controller_tpu_torch.models.traffic import (
         TrafficPolicyModel,
     )
 
-    return TrafficPolicyModel().init_params(
+    return TrafficPolicyModel(hidden_dim=H).init_params(
         torch.Generator().manual_seed(seed), device="cuda")
 
 
@@ -398,7 +412,7 @@ def _mlp_flops(rows, H=128):
     return 2.0 * rows * (F * H + H * H + H)
 
 
-def _k3():
+def _k3(H=128):
     import torch
 
     from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
@@ -407,7 +421,7 @@ def _k3():
     )
 
     G, E = FLEET_GROUPS, FLEET_CAP
-    params = _mlp_params(3)
+    params = _mlp_params(3, H)
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(G, E, F, device="cuda", generator=g).to(torch.bfloat16)
     mask = torch.rand(G, E, device="cuda", generator=g) < 0.8
@@ -419,14 +433,14 @@ def _k3():
     wbytes = sum(p.numel() * 2 for p in params.values())
     return _record(
         "fused_mlp_plan", f"{SRC}/mlp.cu",
-        f"{REF}/ops/pallas_mlp.py:49", f"{G}x{E}x{F}, H=128", err, frac,
+        f"{REF}/ops/pallas_mlp.py:49", f"{G}x{E}x{F}, H={H}", err, frac,
         timings(lambda: forward_cuda(params, x, mask),
                 lambda: forward_reference(params, x, mask)),
-        bound_ms(G * E * (F * 2 + 1 + 4) + wbytes, _mlp_flops(G * E),
+        bound_ms(G * E * (F * 2 + 1 + 4) + wbytes, _mlp_flops(G * E, H),
                  BF16_FLOP_PER_S))
 
 
-def _k3_scores():
+def _k3_scores(H=128):
     import torch
 
     from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
@@ -435,7 +449,7 @@ def _k3_scores():
     )
 
     N = 65536   # the whole-fleet phase's packed rows: 8 shards x 8192
-    params = _mlp_params(4)
+    params = _mlp_params(4, H)
     g = torch.Generator(device="cuda").manual_seed(4)
     rows = torch.randn(N, F, device="cuda", generator=g)
     got, want = score_rows_cuda(params, rows), dense_scores(params, rows)
@@ -448,10 +462,11 @@ def _k3_scores():
     wbytes = sum(p.numel() * 2 for p in params.values())
     rec = _record(
         "fused_mlp_scores", f"{SRC}/mlp.cu", f"{REF}/ops/pallas_mlp.py:49",
-        f"{N}x{F}, H=128", err, float((got != want).float().mean().item()),
+        f"{N}x{F}, H={H}", err, float((got != want).float().mean().item()),
         timings(lambda: score_rows_cuda(params, rows),
                 lambda: dense_scores(params, rows)),
-        bound_ms(N * (F * 4 + 4) + wbytes, _mlp_flops(N), BF16_FLOP_PER_S))
+        bound_ms(N * (F * 4 + 4) + wbytes, _mlp_flops(N, H),
+                 BF16_FLOP_PER_S))
     rec["note"] = ("K3's row-scoring entry: score_rows "
                    f"({REF}/models/traffic.py:89), XLA matmuls in the JAX "
                    "package")
@@ -552,7 +567,9 @@ def _k6a_one(T, S, D, seed, iters=20, eager_iters=50):
 def _k6a():
     return _other_shape(_k6a_one(64, 1024, 32, 7),
                         _k6a_one(SEQ_WINDOW, SEQ_GROUPS * SEQ_ENDPOINTS,
-                                 SEQ_EMBED, 8, iters=5, eager_iters=5))
+                                 SEQ_EMBED, 8, iters=5, eager_iters=5),
+                        _k6a_one(1024, 64, WIDE_HEAD, 11, iters=5,
+                                 eager_iters=5))
 
 
 def _check_close(name: str, got, want, mag) -> tuple:
@@ -677,17 +694,125 @@ def _flash_train_rows(T, S, D, seed, iters=20, eager_iters=50):
 
 
 def _flash_train():
-    """K6b, K7, K8 at the train command's default shape and at the
-    production shape; the first is each row's main shape."""
+    """K6b, K7, K8 at the train command's default shape, at the
+    production shape and at a head width of 160 (two column chunks); the
+    first is each row's main shape."""
     main = _flash_train_rows(64, 256 * 32, 32, 9)
     other = _flash_train_rows(SEQ_WINDOW, SEQ_GROUPS * SEQ_ENDPOINTS,
                               SEQ_EMBED, 10, iters=5, eager_iters=5)
+    wide = _flash_train_rows(1024, 64, WIDE_HEAD, 12, iters=5,
+                             eager_iters=5)
+    return [_other_shape(a, b, c) for a, b, c in zip(main, other, wide)]
+
+
+def _head_inputs(T, S, D, H, seed):
+    """x [T, S, D] bf16 (unit normal, as an attended representation),
+    the head's params at the model's init scales with small random
+    biases, and an f32 cotangent ds [T, S]."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    bf = torch.bfloat16
+    return (randn(T, S, D).to(bf), (randn(D, H) / math.sqrt(D)).to(bf),
+            (randn(H) * 0.1).to(bf), (randn(H, 1) / math.sqrt(H)).to(bf),
+            (randn(1) * 0.1).to(bf), randn(T, S) / (T * S))
+
+
+def _head_rows_one(T, S, D, H, seed, iters=20, eager_iters=50):
+    """K10 and K11 at one shape, each against its plain version on the
+    same inputs (within 2 bf16 ulps of what each output sums,
+    ``score_head_magnitude`` and ``score_head_bwd_magnitude``), K11 run
+    twice and held bit for bit, and both timed beside their plain
+    versions and beside the dense head in torch (bf16 cuBLAS GEMMs:
+    its forward for K10, its forward+backward minus its forward for K11)
+    and the port's own dense head (what ``head="reference"`` runs)."""
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch.ops import (
+        cuda_head as ch,
+    )
+
+    x, w1, b1, w2, b2, ds = _head_inputs(T, S, D, H, seed)
+    params = (w1, b1, w2, b2)
+    shape = f"T={T} S={S} D={D} H={H}"
+    got = ch.score_head_forward(x, *params)
+    want = ch.score_head_plain(x, *params)
+    mag = ch.score_head_magnitude(x, *params)
+    torch.cuda.synchronize()
+    err, frac, ulps = _check_close(f"score_head {shape}", got, want, mag)
+    grads = ch.score_head_bwd(x, *params, ds)
+    want_g = ch.score_head_bwd_plain(x, *params, ds)
+    mags = ch.score_head_bwd_magnitude(x, *params, ds)
+    torch.cuda.synchronize()
+    bwd = [_check_close(f"score_head_bwd {name} {shape}", g, w, m)
+           for name, g, w, m in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                                    grads, want_g, mags)]
+    again = ch.score_head_bwd(x, *params, ds)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"score_head_bwd {shape}: two runs differ")
+    del want_g, mags, again
+
+    def dense(xx, ww1, bb1, ww2, bb2):
+        return (torch.relu(xx @ ww1 + bb1) @ ww2 + bb2)[..., 0].float()
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, *params)]
+    library = {}
+    for key, fn in (("library", dense), ("port_dense", ch.score_head_plain)):
+        fwd = time_device(lambda: fn(*leaves), iters)
+        fwd_bwd = time_device(lambda: torch.autograd.grad(
+            fn(*leaves), leaves, ds), iters)
+        library[key] = (fwd, fwd_bwd)
+    N = T * S
+    fwd_rec = _record(
+        "score_head_fwd", f"{SRC}/score_head.cu",
+        f"{REF}/ops/pallas_head.py:72", shape, err, frac,
+        {**timings(lambda: ch.score_head_forward(x, *params),
+                   lambda: ch.score_head_plain(x, *params),
+                   lambda: dense(x, *params), iters=iters,
+                   eager_iters=eager_iters),
+         "library_note": "dense head in torch, bf16 cuBLAS GEMMs",
+         "port_dense_ms": library["port_dense"][0]},
+        # x read, scores written; 2 N D H + 2 N H flops
+        bound_ms(2 * N * D + 4 * N, 2.0 * N * H * (D + 1), BF16_FLOP_PER_S))
+    fwd_rec["max_ulps_of_magnitude"] = ulps
+    bwd_rec = _record(
+        "score_head_bwd", f"{SRC}/score_head.cu",
+        f"{REF}/ops/pallas_head.py:90", shape,
+        max(b[0] for b in bwd), max(b[1] for b in bwd),
+        {**timings(lambda: ch.score_head_bwd(x, *params, ds),
+                   lambda: ch.score_head_bwd_plain(x, *params, ds),
+                   iters=iters, eager_iters=eager_iters),
+         "library_ms": library["library"][1] - library["library"][0],
+         "library_fwd_bwd_ms": library["library"][1],
+         "library_note": "dense head in torch, bf16 cuBLAS GEMMs: "
+                         "forward+backward minus forward",
+         "port_dense_ms": library["port_dense"][1]
+         - library["port_dense"][0]},
+        # x and ds read, dx written; h again, dw1 and dx: 6 N D H flops
+        bound_ms(4 * N * D + 4 * N, 6.0 * N * D * H, BF16_FLOP_PER_S))
+    bwd_rec["max_ulps_of_magnitude"] = max(b[2] for b in bwd)
+    return fwd_rec, bwd_rec
+
+
+def _head_rows():
+    """K10 and K11 at the train command's default shape (the main one)
+    and at the reference's own head shape, T = 2048, S = 128, D = 128,
+    H = 256 (``ops/pallas_head.py:10-13``)."""
+    main = _head_rows_one(64, 256 * 32, 32, 128, 13)
+    other = _head_rows_one(SEQ_WINDOW, SEQ_GROUPS * SEQ_ENDPOINTS,
+                           SEQ_EMBED, SEQ_HIDDEN, 14, iters=5,
+                           eager_iters=10)
     return [_other_shape(a, b) for a, b in zip(main, other)]
 
 
 def phase_kernels() -> list:
-    return [_k1(), _k2(), _k3(), _k3_scores(), _k4(), _k6a(),
-            *_flash_train()]
+    return [_k1(), _k2(), _other_shape(_k3(), _k3(WIDE_HIDDEN)),
+            _other_shape(_k3_scores(), _k3_scores(WIDE_HIDDEN)), _k4(),
+            _k6a(), *_flash_train(), *_head_rows()]
 
 
 def phase_flash_crossover(S: int = 1024, D: int = 32,
@@ -1025,6 +1150,112 @@ def phase_temporal_train_seq(device: str, steps: int = SEQ_WINDOW,
             "grad_error_vs_reference": errs, "launches": launches}
 
 
+def phase_temporal_fused_train(device: str, steps: int = TRAIN_STEPS,
+                               groups: int = 256, endpoints: int = 32,
+                               hidden: int = 128, window: int = 64,
+                               embed_dim: int = 32,
+                               check_steps: int = TRAIN_CHECK_STEPS,
+                               launch_counts=None) -> dict:
+    """``TemporalTrafficModel(head="fused", supervision="sequence")``
+    trained with adam through its model API (the CLI selects no head, as
+    in the reference) at the train command's default shape on
+    ``device``, on the train command's batch stream: ``steps`` steps
+    timed, then ``check_steps`` steps on ``device`` and on the CPU with
+    ``head="fused_always"`` (the kernels' plain versions), final losses
+    within ``TRAIN_LOSS_RTOL``; one batch's loss (rtol 1e-4) and
+    gradients (``parity.grads_close``) against the dense head on
+    ``device``; and ``steps`` steps of the dense-head model timed beside
+    it."""
+    import numpy as np
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch import parity
+    from aws_global_accelerator_controller_tpu_torch.cmd.compute import (
+        TRAIN_STREAM,
+    )
+    from aws_global_accelerator_controller_tpu_torch.device import (
+        resolve_device,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.common import (
+        value_and_grad,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.temporal import (
+        TemporalTrafficModel,
+        synthetic_window,
+    )
+
+    dev = resolve_device(device)
+    cpu = torch.device("cpu")
+    kw = dict(embed_dim=embed_dim, hidden_dim=hidden,
+              supervision="sequence")
+    fused = TemporalTrafficModel(head="fused", **kw)
+    dense = TemporalTrafficModel(**kw)
+    init = fused.init_params(torch.Generator().manual_seed(0), device=cpu)
+
+    def batch(step, d):
+        return synthetic_window(np.random.default_rng((0, TRAIN_STREAM,
+                                                       step)),
+                                steps=window, groups=groups,
+                                endpoints=endpoints, per_step=True,
+                                device=d)
+
+    def sync(d):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+    def train(model, d, n):
+        """(final loss, wall ms) of ``n`` steps from ``init`` on ``d``."""
+        params = {k: v.to(d) for k, v in init.items()}
+        state = model.init_opt_state(params)
+        sync(d)
+        t0 = time.perf_counter()
+        for step in range(n):
+            params, state, loss = model.train_step(params, state,
+                                                   *batch(step, d))
+        loss = float(loss)
+        sync(d)
+        check(math.isfinite(loss), f"temporal_fused_train: loss {loss}")
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    loss, ms = train(fused, dev, steps)
+    launches = launch_counts() if launch_counts else {}
+    check_loss, check_ms = train(fused, dev, check_steps)
+    cpu_loss, cpu_ms = train(TemporalTrafficModel(head="fused_always", **kw),
+                             cpu, check_steps)
+    rel = abs(check_loss - cpu_loss) / abs(cpu_loss)
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"temporal_fused_train: loss after {check_steps} steps "
+          f"{check_loss} vs {cpu_loss} on the CPU (rtol {TRAIN_LOSS_RTOL})")
+    params = {k: v.to(dev) for k, v in init.items()}
+    w, b = batch(0, dev)
+    f_loss, f_grads = value_and_grad(fused.loss, params, w, b)
+    d_loss, d_grads = value_and_grad(dense.loss, params, w, b)
+    head_rel = abs(float(f_loss) - float(d_loss)) / abs(float(d_loss))
+    errs = {k: parity.grad_error(_host(g.float()), _host(d_grads[k].float()))
+            for k, g in f_grads.items()}
+    check(head_rel <= 1e-4, f"temporal_fused_train: fused-head loss "
+          f"{float(f_loss)} vs dense {float(d_loss)}")
+    check(all(e <= 1.0 for e in errs.values()),
+          f"temporal_fused_train: fused vs dense head gradients (error / "
+          f"tolerance, rtol {parity.GRAD_RTOL} atol {parity.GRAD_ATOL}): "
+          f"{errs}")
+    del f_grads, d_grads, params
+    dense_loss, dense_ms = train(dense, dev, steps)
+    per_step = (ms - check_ms) / max(steps - check_steps, 1)
+    return {"phase": "temporal_fused_train", "device": str(dev),
+            "steps": steps, "streams": groups * endpoints, "window": window,
+            "embed_dim": embed_dim, "hidden_dim": hidden, "loss": loss,
+            "ms": ms, "ms_per_step": per_step, "check_steps": check_steps,
+            "check_loss": check_loss, "cpu_loss": cpu_loss,
+            "cpu_ms": cpu_ms, "loss_rel_err_vs_cpu": rel,
+            "loss_rel_err_vs_dense_head": head_rel,
+            "grad_error_vs_dense_head": errs, "dense_head_loss": dense_loss,
+            "dense_head_ms": dense_ms,
+            "dense_head_ms_per_step": dense_ms / max(steps, 1),
+            "fused_head_ms_per_step": ms / max(steps, 1),
+            "launches": launches}
+
+
 def _compare_fleet(name, got, want):
     import numpy as np
 
@@ -1215,30 +1446,37 @@ def main() -> int:
     # (K1), as in any fresh process
     totals = {}
     train_once = {K6B: 1, K7: 1, K8: 1, K6A: 0}
+    no_head = {K10: 0, K11: 0}
     path = (("plan", lambda c: phase_plan("cuda", launch_counts=c),
-             ("probe_double", "fused_mlp_plan"), None),
+             ("probe_double", "fused_mlp_plan"), no_head),
             ("whole_fleet", lambda c: phase_fleet("cuda", launch_counts=c),
-             ("fused_mlp_scores", "plan_weights"), None),
+             ("fused_mlp_scores", "plan_weights"), no_head),
             ("resident", lambda c: phase_resident("cuda", launch_counts=c),
-             WAVE_KERNELS, None),
+             WAVE_KERNELS, no_head),
             ("temporal_plan",
              lambda c: phase_temporal_plan("cuda", launch_counts=c),
-             (), {K6A: 0}),
+             (), {K6A: 0, **no_head}),
             ("temporal_eval",
              lambda c: phase_temporal_eval("cuda", launch_counts=c),
-             (K6A,), {K6A: EVAL_BATCHES}),
+             (K6A,), {K6A: EVAL_BATCHES, **no_head}),
             ("temporal_seq",
              lambda c: phase_temporal_seq("cuda", launch_counts=c),
-             (K6A,), {K6A: 1}),
+             (K6A,), {K6A: 1, **no_head}),
             ("temporal_train",
              lambda c: phase_temporal_train("cuda", launch_counts=c),
              (K6B, K7, K8),
-             {k: n * TRAIN_STEPS for k, n in train_once.items()}),
+             {**{k: n * TRAIN_STEPS for k, n in train_once.items()},
+              **no_head}),
             ("temporal_train_seq",
              lambda c: phase_temporal_train_seq("cuda", launch_counts=c),
-             (K6B, K7, K8), train_once),
+             (K6B, K7, K8), {**train_once, **no_head}),
             ("mlp_train", lambda c: phase_mlp_train("cuda", launch_counts=c),
-             (), {k: 0 for k in train_once}))
+             (), {**{k: 0 for k in train_once}, **no_head}),
+            ("temporal_fused_train",
+             lambda c: phase_temporal_fused_train("cuda", launch_counts=c),
+             (K6B, K7, K8, K10, K11),
+             {k: n * TRAIN_STEPS for k, n in
+              {**train_once, K10: 1, K11: 1}.items()}))
     for name, fn, expect, exact in path:
         t0 = time.perf_counter()
         counts = run_path_phase(name, fn, expect, build, exact)

@@ -83,3 +83,18 @@ def test_mlp_train_phase_rehearses_on_cpu():
     out = chip_smoke.phase_mlp_train("cpu", steps=4, groups=8,
                                      endpoints=4, hidden=16)
     assert out["model"] == "mlp" and out["loss_rel_err_vs_cpu"] == 0
+
+
+def test_temporal_fused_train_phase_rehearses_on_cpu():
+    """On the CPU ``head="fused"`` is the dense head (as in the
+    reference off its TPU), held against ``head="fused_always"``, the
+    kernels' plain versions; no kernel launches."""
+    build.reset_launch_counts()
+    out = chip_smoke.phase_temporal_fused_train(
+        "cpu", steps=4, groups=3, endpoints=4, hidden=16, embed_dim=16,
+        launch_counts=build.launch_counts)
+    assert out["device"] == "cpu" and out["steps"] == 4
+    assert out["loss_rel_err_vs_cpu"] <= chip_smoke.TRAIN_LOSS_RTOL
+    assert out["loss_rel_err_vs_dense_head"] == 0
+    assert max(out["grad_error_vs_dense_head"].values()) == 0
+    assert not any(out["launches"].values())

@@ -204,12 +204,16 @@ def test_cpu_calls_build_and_launch_nothing():
     tmodel.loss(tparams, window, wbatch)
     tmodel.train_step(tparams, tmodel.init_opt_state(tparams), window,
                       wbatch)
+    fused = TemporalTrafficModel(embed_dim=16, hidden_dim=16,
+                                 supervision="sequence", head="fused_always")
+    fused.train_step(tparams, fused.init_opt_state(tparams), window, wbatch)
     model.train_step(params, model.init_opt_state(params), batch)
     counts = build.launch_counts()
     assert set(counts) >= {"probe_double", "plan_weights", "fused_mlp_plan",
                            "fused_mlp_scores", "row_splice",
                            "flash_attention", "flash_attention_stats",
-                           "flash_bwd_dq", "flash_bwd_dkv"}
+                           "flash_bwd_dq", "flash_bwd_dkv", "score_head_fwd",
+                           "score_head_bwd"}
     assert not any(counts.values())
     if not torch.cuda.is_available():
         assert build._library is None

@@ -62,6 +62,7 @@ from aws_global_accelerator_controller_tpu_torch.models.temporal import (
     TemporalTrafficModel,
     synthetic_window,
 )
+from aws_global_accelerator_controller_tpu_torch.ops import cuda_attention
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
     BLOCK_K,
     flash_attention,
@@ -222,6 +223,31 @@ def test_flash_autograd_is_the_plain_backward_and_near_dense():
                                       mag.numpy(), ulps=3)
 
 
+def test_width_padding_is_exact():
+    """On the card the wrappers pad a head width that is not a multiple
+    of 8 with zero columns and keep the true width's scale
+    (``cuda_attention._pad_width``).  The plain versions show that is
+    exact: at D = 20, attention and its backward on the zero-padded
+    D = 24 inputs, with the scale of D = 20 and the padding dropped,
+    equal the unpadded ones bit for bit, and the padded columns come out
+    zero."""
+    rng = np.random.default_rng(20)
+    D = 20
+    q, k, v, do = (bf16_pair(rng, (130, 3, D))[1] for _ in range(4))
+    padded = cuda_attention._pad_width(q, k, v, do)
+    assert all(x.shape == (130, 3, 24) for x in padded)
+    pq, pk, pv, pdo = padded
+    o, m, l = flash_attention_stats_plain(q, k, v)
+    po, pm, pl = flash_attention_stats_plain(pq, pk, pv, scale=D ** -0.5)
+    assert torch.equal(po[..., :D], o) and not po[..., D:].any()
+    assert torch.equal(pm, m) and torch.equal(pl, l)
+    grads = flash_attention_bwd_plain(q, k, v, o, do, m, l)
+    pgrads = flash_attention_bwd_plain(pq, pk, pv, po, pdo, pm, pl,
+                                       scale=D ** -0.5)
+    for g, pg in zip(grads, pgrads):
+        assert torch.equal(pg[..., :D], g) and not pg[..., D:].any()
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_reference_matches_jax(causal):
     rng = np.random.default_rng(7)
@@ -304,9 +330,8 @@ def test_attention_chunk_split_equals_unsplit(params):
 
 
 def test_constructor_checks():
-    for head in ("fused", "fused_always"):
-        with pytest.raises(ValueError, match="K10"):
-            TemporalTrafficModel(head=head)
+    for head in ("reference", "fused", "fused_always"):
+        assert TemporalTrafficModel(head=head).head == head
     for bad in (dict(attention="ring"), dict(supervision="all"),
                 dict(head="pallas"), dict(attention_chunk=-1)):
         with pytest.raises(ValueError):

@@ -169,3 +169,24 @@ def test_plan_command_on_cpu(capsys):
           "--device", "cpu", "--serve", "fused"])
     fused = json.loads(capsys.readouterr().out)
     assert parity.weights_close(np.asarray(fused["weights"]), w)
+
+
+def test_plan_command_takes_any_hidden_width(capsys):
+    """The fused MLP kernel tiles its hidden layer, so ``--hidden 256``
+    needs no other ``--serve`` and the help names no limit."""
+    from aws_global_accelerator_controller_tpu_torch.cmd.compute import (
+        build_parser,
+    )
+
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["plan", "--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert "--hidden HIDDEN Model hidden width." in text
+    assert "128" not in text and "--serve dense" not in text
+    args = build_parser().parse_args(["plan", "--model", "mlp", "--hidden",
+                                      "256"])
+    assert (args.hidden, args.serve) == (256, "auto")
+    assert main(["plan", "--model", "mlp", "--hidden", "256", "--groups",
+                 "4", "--endpoints", "5", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert np.asarray(out["weights"]).shape == (4, 5)

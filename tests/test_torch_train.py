@@ -48,6 +48,7 @@ from aws_global_accelerator_controller_tpu_torch.cmd import compute
 from aws_global_accelerator_controller_tpu_torch.cmd.compute import main
 from aws_global_accelerator_controller_tpu_torch.device import DeviceError
 from aws_global_accelerator_controller_tpu_torch.kernels import build
+from aws_global_accelerator_controller_tpu_torch.models import common
 from aws_global_accelerator_controller_tpu_torch.models.common import (
     adam,
     apply_updates,
@@ -152,33 +153,115 @@ def test_flash_grads_agree_with_dense_attention_grads(temporal_params):
         assert parity.grads_close(as_f32(g), as_f32(grads["reference"][k])), k
 
 
+def _optimizers(name):
+    """(the reference's optimizer, the port's) for ``name``."""
+    if name == "adam":
+        return optax.adam(LR), adam(LR)
+    return jax_flat_adam(LR), flat_adam(LR)
+
+
+def _jax_state(name, state):
+    return state[0] if name == "adam" else state
+
+
+def _bits(x):
+    return as_f32(x).view(np.int32)
+
+
 @pytest.mark.parametrize("name", ["adam", "flat_adam"])
 def test_optimizers_match_the_reference_bit_for_bit(name):
-    """Five steps of fixed bf16 grads of mixed scales: the port's adam
-    against ``optax.adam``, its flat_adam against the JAX package's."""
+    """Fifty steps over 1,048,907 elements of fresh bf16 grads whose
+    scales spread from 1e-8 to 1: the port's adam against
+    ``optax.adam``, its flat_adam against the JAX package's; updates,
+    params and moments bit for bit."""
     rng = np.random.default_rng(5)
-    shapes = {"w1": (8, 16), "b1": (16,), "w2": (16, 1), "b2": (1,)}
+    shapes = {"w1": (1024, 1024), "b1": (300,), "w2": (7, 11), "b2": (1,)}
     jp = {k: jnp.asarray(rng.standard_normal(s).astype(np.float32),
                          jnp.bfloat16) for k, s in shapes.items()}
-    grads = [{k: jnp.asarray((rng.standard_normal(s)
-                              * 10.0 ** rng.integers(-4, 1)).astype(
-                                  np.float32), jnp.bfloat16)
-              for k, s in shapes.items()} for _ in range(5)]
-    jopt = optax.adam(LR) if name == "adam" else jax_flat_adam(LR)
-    topt = adam(LR) if name == "adam" else flat_adam(LR)
+    jopt, topt = _optimizers(name)
     jstate, tp = jopt.init(jp), to_torch(jp)
     tstate = topt.init(tp)
-    for g in grads:
+    for _ in range(50):
+        g = {k: jnp.asarray((rng.standard_normal(s)
+                             * 10.0 ** rng.uniform(-8, 0, s)).astype(
+                                 np.float32), jnp.bfloat16)
+             for k, s in shapes.items()}
         jup, jstate = jopt.update(g, jstate, jp)
         jp = optax.apply_updates(jp, jup)
         tup, tstate = topt.update(to_torch(g), tstate, tp)
         tp = apply_updates(tp, tup)
         for k in shapes:
             assert tup[k].dtype == tp[k].dtype == torch.bfloat16
-            assert np.array_equal(as_f32(tup[k]), as_f32(jup[k])), k
-            assert np.array_equal(as_f32(tp[k]), as_f32(jp[k])), k
-    assert tstate.count == int(jstate[0].count if name == "adam"
-                               else jstate.count) == 5
+            assert np.array_equal(_bits(tup[k]), _bits(jup[k])), k
+            assert np.array_equal(_bits(tp[k]), _bits(jp[k])), k
+    js = _jax_state(name, jstate)
+    assert tstate.count == int(js.count) == 50
+    if name == "adam":
+        for k in shapes:
+            assert np.array_equal(_bits(tstate.mu[k]), _bits(js.mu[k])), k
+            assert np.array_equal(_bits(tstate.nu[k]), _bits(js.nu[k])), k
+    else:
+        assert np.array_equal(_bits(tstate.mu), _bits(js.mu))
+        assert np.array_equal(_bits(tstate.nu), _bits(js.nu))
+
+
+def test_flat_adam_takes_the_reference_sqrt():
+    """One element at count 43 where a float32 ``torch.sqrt`` on the CPU
+    is one ulp off the correctly rounded root, which moves the bf16 step
+    by one ulp: the port steps as the JAX package's ``flat_adam``."""
+    mu, nu = np.float32(0.0011205738), np.float32(5.5017717e-06)
+    grad = jnp.asarray([-0.0059509277], jnp.bfloat16)
+    jopt, topt = _optimizers("flat_adam")
+    jstate = jopt.init({"w": grad})._replace(
+        count=jnp.asarray(43, jnp.int32), mu=jnp.asarray([mu]),
+        nu=jnp.asarray([nu]))
+    tstate = topt.init(to_torch({"w": grad}))._replace(
+        count=43, mu=torch.tensor([mu]), nu=torch.tensor([nu]))
+    jup, _ = jopt.update({"w": grad}, jstate)
+    tup, _ = topt.update(to_torch({"w": grad}), tstate)
+    assert float(as_f32(jup["w"])[0]) == pytest.approx(-3.6716461e-05,
+                                                       rel=1e-7)
+    assert np.array_equal(_bits(tup["w"]), _bits(jup["w"]))
+
+
+@pytest.mark.parametrize("decay", [0.9, 0.999])
+def test_bias_correction_matches_xla(decay):
+    """1 - decay**count for counts 1-100,000 equals ``jnp``'s float32
+    value, as ``optax`` (int32 count) and the JAX ``flat_adam`` (float32
+    count) compute it."""
+    counts = np.arange(1, 100_001, dtype=np.int32)
+    want_int = np.asarray(jax.jit(lambda c: 1 - decay ** c)(counts))
+    want_f32 = np.asarray(1.0 - decay ** jnp.asarray(counts, jnp.float32))
+    assert np.array_equal(want_int, want_f32)
+    got = np.array([common._bias(decay, int(c)) for c in counts],
+                   np.float32)
+    assert np.array_equal(got.view(np.int32), want_int.view(np.int32))
+
+
+@pytest.mark.parametrize("name", ["adam", "flat_adam"])
+def test_optimizers_flush_subnormals_as_xla(name):
+    """Grads whose squares, products with the decay constants or roots
+    fall below float32's smallest normal: XLA on the CPU reads and
+    writes subnormals as zero, and so does the port (moments, updates
+    and params bit for bit over three steps)."""
+    vals = np.array([1e-19, -2e-19, 3e-18, 1e-37, 5e-39, 0.0, 1e-3,
+                     -1e-20], np.float32)
+    g = {"w": jnp.asarray(vals, jnp.bfloat16)}
+    jp = {"w": jnp.asarray([0, 1, -1, 0, 0, 0, 2, 0], jnp.bfloat16)}
+    jopt, topt = _optimizers(name)
+    jstate, tp = jopt.init(jp), to_torch(jp)
+    tstate = topt.init(tp)
+    for _ in range(3):
+        jup, jstate = jopt.update(g, jstate, jp)
+        jp = optax.apply_updates(jp, jup)
+        tup, tstate = topt.update(to_torch(g), tstate, tp)
+        tp = apply_updates(tp, tup)
+        js = _jax_state(name, jstate)
+        jnu, tnu = ((js.nu["w"], tstate.nu["w"]) if name == "adam"
+                    else (js.nu, tstate.nu))
+        assert np.array_equal(_bits(tnu), _bits(jnu))
+        assert np.array_equal(_bits(tup["w"]), _bits(jup["w"]))
+        assert np.array_equal(_bits(tp["w"]), _bits(jp["w"]))
 
 
 @pytest.mark.parametrize("optimizer,supervision", [
