@@ -41,7 +41,8 @@
 //   is built in registers and folded into the running h . w2 of its rows.
 // - K11: a persistent grid (as many CTAs as the card holds at once, at
 //   most 4 an SM), CTA c owning a contiguous run of row tiles, w1 whole
-//   in shared memory when it fits in 96 KB (else one chunk at a time).
+//   in shared memory when D is 65-128 and it fits in 96 KB (else one
+//   chunk at a time).
 //   Pass 1, per (D chunk, hidden chunk) block of dw1: for each of its
 //   row tiles, rebuild the h chunk, form dh in shared
 //   memory, and add x^T . dh into the block's accumulators in registers
@@ -114,10 +115,14 @@ __host__ __device__ inline int w1_stride(int H) {
   return (H + kHN - 1) / kHN * kHN + 8;
 }
 
-// Does K11 hold all of w1 in shared memory (one column chunk of D only)?
+// Does K11 hold all of w1 in shared memory?  Only for one 128-column
+// chunk of D: on the H100 that took K11 at D = 128, H = 256 from 1.38 to
+// 1.04 ms, where a w1 chunk reloaded per row tile is 16 KB, while at
+// D = 32, H = 128 (4 KB a reload) the streamed form ran 5% faster.
 template <int kDPad, bool kChunked>
 __host__ __device__ inline bool w1_resident(int H) {
-  return !kChunked && 2 * kDPad * w1_stride(H) <= kW1ResidentBytes;
+  return kDPad == kMaxDPad && !kChunked &&
+         2 * kDPad * w1_stride(H) <= kW1ResidentBytes;
 }
 
 // w1 [D, H] whole into a [kDPad][w1_stride(H)] tile, zero past D and H.

@@ -98,17 +98,15 @@ def score_head_bwd_plain(x: torch.Tensor, w1: torch.Tensor,
             db2.to(b2.dtype))
 
 
-def _uncertain_weight(x2, w1, b1, gate):
-    """1 where the relu passes, 0 where it is shut, and 2**7 on every
-    unit whose gate another f32 order of x . w1 could flip: its
-    pre-activation lies within the order's error bound (D ulps of f32
-    of sum |x w1|) plus one bf16 ulp of zero."""
+def _gate_uncertain(x2, w1, b1) -> torch.Tensor:
+    """True on every unit whose relu gate another f32 order of x . w1
+    could flip: its pre-activation lies within the order's error bound
+    (D ulps of f32 of sum |x w1|) plus one bf16 ulp of zero."""
     acc = _f32_matmul(x2, w1)
     err = x2.shape[-1] * 2.0 ** -24 * _f32_matmul(x2.abs(), w1.abs())
     ulp = torch.exp2(torch.floor(torch.log2(
         acc.abs().clamp_min(2.0 ** -126))) - 7)
-    near = (acc + b1.float()).abs() <= 2 * err + ulp
-    return torch.where(near, 2.0 ** 7, gate.float())
+    return (acc + b1.float()).abs() <= 2 * err + ulp
 
 
 def score_head_magnitude(x: torch.Tensor, w1: torch.Tensor,
@@ -123,26 +121,93 @@ def score_head_magnitude(x: torch.Tensor, w1: torch.Tensor,
             + b2.float().abs())
 
 
-def score_head_bwd_magnitude(x: torch.Tensor, w1: torch.Tensor,
-                             b1: torch.Tensor, w2: torch.Tensor,
-                             b2: torch.Tensor, ds: torch.Tensor) -> Grads:
-    """What each gradient of the head sums, in absolute value, f32, in
-    the shapes of (dx, dw1, db1, dw2, db2): |dh| . |w1|^T, |x|^T . |dh|,
-    sum |dh|, |h|^T . |ds| and sum |ds|, with |dh| = |ds w2| on every
-    unit the relu passes.  Rounding h, dh or a sum the other way moves a
-    gradient by about one bf16 ulp of this, however much its sum
-    cancels; a relu gate that another order of x . w1 can flip moves it
-    by the unit's whole term, so such a unit counts 2**7 times here, and
-    two bf16 ulps of the magnitude cover it (``parity.scores_close`` with
-    this as ``scale``)."""
+def score_head_dx_magnitude(x: torch.Tensor, w1: torch.Tensor,
+                            b1: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor,
+                            ds: torch.Tensor) -> torch.Tensor:
+    """What each element of dx sums over the hidden units, in absolute
+    value, f32 in x's shape: |dh| . |w1|^T, with |dh| = |ds w2| on every
+    unit the relu passes.  A relu gate that another f32 order of x . w1
+    can flip moves dx by the unit's whole term, so such a unit counts
+    2**7 times here, and two bf16 ulps of the magnitude cover it
+    (``parity.scores_close`` with this as ``scale``)."""
     D = x.shape[-1]
     x2 = x.reshape(-1, D).to(torch.bfloat16)
     h = _hidden(x2, w1, b1)
+    weight = torch.where(_gate_uncertain(x2, w1, b1), 2.0 ** 7,
+                         (h > 0).float())
+    dh = weight * (ds.reshape(-1, 1).float() * w2.float().t()).abs()
+    return _f32_matmul(dh, w1.abs().t()).reshape(x.shape)
+
+
+#: K11's weight gradients against their plain version: the shares of the
+#: root sum of squares and of the absolute sum of each gradient's terms
+#: that :func:`score_head_weight_grad_limits` allows
+RSS_SHARE = 2.0 ** -6
+ORDER_SHARE = 2.0 ** -14
+
+
+def score_head_weight_grad_limits(
+        x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+        w2: torch.Tensor, b2: torch.Tensor, ds: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """How far each weight gradient of the head (dw1, db1, dw2, db2, f32
+    in their shapes) may lie from its plain version's, before the cast
+    to the params' dtype (:func:`weight_grad_error` adds one ulp of
+    that).
+
+    Each sums one term a row: x dh, dh, h bf16(ds) and ds.  Over many
+    rows of random sign such a sum cancels to about the root sum of
+    squares (rss) of its terms, far below their absolute sum, so a limit
+    in ulps of the absolute sum would pass a kernel that lost most of
+    its rows.  The limit is instead the sum of:
+
+    - ``RSS_SHARE`` (2**-6) of the rss: another f32 order of x . w1
+      rounds an h one bf16 ulp (2**-8) the other way, with a random
+      sign, on a share of the rows;
+    - ``ORDER_SHARE`` (2**-14) of the absolute sum: the worst f32 error
+      of adding the terms in another order, for chains of up to 1024
+      additions;
+    - for dw1 and db1, the absolute sum of the terms of every unit whose
+      relu gate another order can flip (such a flip adds or drops the
+      whole term).
+
+    Losing half of the rows moves a cancelling sum by about 0.7 of its
+    rss and a sum that does not cancel by half of its absolute sum; the
+    limit is a few hundredths of the rss at these shapes."""
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).to(torch.bfloat16)
+    xf = x2.float()
+    h = _hidden(x2, w1, b1).float()
     dsf = ds.reshape(-1, 1).float()
-    dh = _uncertain_weight(x2, w1, b1, h > 0) * (dsf * w2.float().t()).abs()
-    return (_f32_matmul(dh, w1.abs().t()).reshape(x.shape),
-            _f32_matmul(x2.abs().t(), dh), dh.sum(dim=0),
-            _f32_matmul(h.abs().t(), dsf.abs()), dsf.abs().sum(dim=0))
+    ds_b = dsf.to(torch.bfloat16).float()
+    g = (dsf * w2.float().t()).to(torch.bfloat16).float().abs()   # [N, H]
+    dh = torch.where(h > 0, g, 0.0)
+    flip = torch.where(_gate_uncertain(x2, w1, b1), g, 0.0)
+
+    def limit(sq, total, flipped=0.0):
+        return RSS_SHARE * sq.sqrt() + ORDER_SHARE * total + flipped
+
+    xa = xf.abs()
+    return (limit(_f32_matmul(xf.square().t(), dh.square()),
+                  _f32_matmul(xa.t(), dh), _f32_matmul(xa.t(), flip)),
+            limit(dh.square().sum(dim=0), dh.sum(dim=0), flip.sum(dim=0)),
+            limit(_f32_matmul(h.square().t(), ds_b.square()),
+                  _f32_matmul(h.t(), ds_b.abs())),
+            limit(dsf.square().sum(dim=0), dsf.abs().sum(dim=0)))
+
+
+def weight_grad_error(got: torch.Tensor, want: torch.Tensor,
+                      limit: torch.Tensor) -> float:
+    """max |got - want| / (limit + one ulp of got's dtype at |want|): a
+    weight gradient passes at <= 1 (``limit`` from
+    :func:`score_head_weight_grad_limits`; the ulp covers a sum that
+    another order puts on the other side of the cast's rounding)."""
+    eps = torch.finfo(got.dtype).eps
+    got, want = got.double().cpu(), want.double().cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126)))) * eps
+    return float(((got - want).abs() / (limit.double().cpu() + ulp)).max())
 
 
 def _operands(name: str, x: torch.Tensor, w1, b1, w2, b2):

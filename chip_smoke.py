@@ -724,9 +724,11 @@ def _head_inputs(T, S, D, H, seed):
 
 def _head_rows_one(T, S, D, H, seed, iters=20, eager_iters=50):
     """K10 and K11 at one shape, each against its plain version on the
-    same inputs (within 2 bf16 ulps of what each output sums,
-    ``score_head_magnitude`` and ``score_head_bwd_magnitude``), K11 run
-    twice and held bit for bit, and both timed beside their plain
+    same inputs (scores and dx within 2 bf16 ulps of what each sums,
+    ``score_head_magnitude`` and ``score_head_dx_magnitude``; the weight
+    gradients, sums over every row that cancel, within
+    ``score_head_weight_grad_limits``), K11 run twice and held bit for
+    bit, and both timed beside their plain
     versions and beside the dense head in torch (bf16 cuBLAS GEMMs:
     its forward for K10, its forward+backward minus its forward for K11)
     and the port's own dense head (what ``head="reference"`` runs)."""
@@ -746,15 +748,27 @@ def _head_rows_one(T, S, D, H, seed, iters=20, eager_iters=50):
     err, frac, ulps = _check_close(f"score_head {shape}", got, want, mag)
     grads = ch.score_head_bwd(x, *params, ds)
     want_g = ch.score_head_bwd_plain(x, *params, ds)
-    mags = ch.score_head_bwd_magnitude(x, *params, ds)
+    dx_mag = ch.score_head_dx_magnitude(x, *params, ds)
+    limits = ch.score_head_weight_grad_limits(x, *params, ds)
     torch.cuda.synchronize()
-    bwd = [_check_close(f"score_head_bwd {name} {shape}", g, w, m)
-           for name, g, w, m in zip(("dx", "dw1", "db1", "dw2", "db2"),
-                                    grads, want_g, mags)]
+    bwd = [_check_close(f"score_head_bwd dx {shape}", grads[0], want_g[0],
+                        dx_mag)]
+    weight_errs = {}
+    for name, g, w, lim in zip(("dw1", "db1", "dw2", "db2"), grads[1:],
+                               want_g[1:], limits):
+        check(bool(torch.isfinite(g.float()).all()),
+              f"score_head_bwd {name} {shape}: non-finite output")
+        weight_errs[name] = ch.weight_grad_error(g, w, lim)
+        check(weight_errs[name] <= 1.0,
+              f"score_head_bwd {name} {shape}: {weight_errs[name]} times "
+              f"its limit from its plain version")
+        diff = (g.float() - w.float()).abs()
+        bwd.append((float(diff.max()), float((diff > 0).float().mean()),
+                    0.0))
     again = ch.score_head_bwd(x, *params, ds)
     check(all(torch.equal(a, b) for a, b in zip(grads, again)),
           f"score_head_bwd {shape}: two runs differ")
-    del want_g, mags, again
+    del want_g, dx_mag, limits, again
 
     def dense(xx, ww1, bb1, ww2, bb2):
         return (torch.relu(xx @ ww1 + bb1) @ ww2 + bb2)[..., 0].float()
@@ -794,7 +808,8 @@ def _head_rows_one(T, S, D, H, seed, iters=20, eager_iters=50):
          - library["port_dense"][0]},
         # x and ds read, dx written; h again, dw1 and dx: 6 N D H flops
         bound_ms(4 * N * D + 4 * N, 6.0 * N * D * H, BF16_FLOP_PER_S))
-    bwd_rec["max_ulps_of_magnitude"] = max(b[2] for b in bwd)
+    bwd_rec["dx_max_ulps_of_magnitude"] = bwd[0][2]
+    bwd_rec["weight_grad_error_over_limit"] = weight_errs
     return fwd_rec, bwd_rec
 
 
@@ -1233,6 +1248,8 @@ def phase_temporal_fused_train(device: str, steps: int = TRAIN_STEPS,
     head_rel = abs(float(f_loss) - float(d_loss)) / abs(float(d_loss))
     errs = {k: parity.grad_error(_host(g.float()), _host(d_grads[k].float()))
             for k, g in f_grads.items()}
+    head_size = {k: float(d_grads[k].float().abs().max())
+                 for k in ("w1", "b1", "w2", "b2")}
     check(head_rel <= 1e-4, f"temporal_fused_train: fused-head loss "
           f"{float(f_loss)} vs dense {float(d_loss)}")
     check(all(e <= 1.0 for e in errs.values()),
@@ -1249,7 +1266,8 @@ def phase_temporal_fused_train(device: str, steps: int = TRAIN_STEPS,
             "check_loss": check_loss, "cpu_loss": cpu_loss,
             "cpu_ms": cpu_ms, "loss_rel_err_vs_cpu": rel,
             "loss_rel_err_vs_dense_head": head_rel,
-            "grad_error_vs_dense_head": errs, "dense_head_loss": dense_loss,
+            "grad_error_vs_dense_head": errs,
+            "head_grad_max_abs": head_size, "dense_head_loss": dense_loss,
             "dense_head_ms": dense_ms,
             "dense_head_ms_per_step": dense_ms / max(steps, 1),
             "fused_head_ms_per_step": ms / max(steps, 1),

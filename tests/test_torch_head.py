@@ -12,12 +12,19 @@ Tolerances, each stated where it is used:
 - scores: 2 bf16 ulps of what each sums in absolute value
   (``cuda_head.score_head_magnitude``); at these shapes they agree bit
   for bit;
-- gradients: 2 bf16 ulps of what each sums in absolute value, a relu
+- dx: 2 bf16 ulps of what each element sums in absolute value, a relu
   gate that another f32 order could flip counted in full
-  (``cuda_head.score_head_bwd_magnitude``): dx and dw1 sum in another
-  f32 order than XLA's;
-- model losses: rtol 1e-4; params after 3 adam steps within 2 lr a
-  step (as ``test_torch_train.py``).
+  (``cuda_head.score_head_dx_magnitude``): dx sums in another f32 order
+  than XLA's;
+- weight gradients: within ``cuda_head.score_head_weight_grad_limits``
+  (a share of the root sum of squares of their terms, which is what a
+  sum over rows of random sign cancels to, plus the f32 order's error
+  and the terms of gates another order could flip) and one ulp of
+  their dtype;
+- model losses: rtol 1e-4; each param's change over 3 adam steps
+  within half a step of the reference's change and one bf16 ulp of the
+  param (where one f32 update lands on the other side of a bf16
+  rounding).
 """
 import jax
 import jax.numpy as jnp
@@ -45,10 +52,12 @@ from aws_global_accelerator_controller_tpu_torch.models.temporal import (
 from aws_global_accelerator_controller_tpu_torch.ops import cuda_head
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_head import (
     score_head,
-    score_head_bwd_magnitude,
     score_head_bwd_plain,
+    score_head_dx_magnitude,
     score_head_magnitude,
     score_head_plain,
+    score_head_weight_grad_limits,
+    weight_grad_error,
 )
 
 SHAPES = [(19, 48, 96, 200), (8, 1, 8, 16), (16, 128, 128, 256)]
@@ -102,12 +111,62 @@ def test_backward_plain_matches_reference_kernel(t, s, d, h):
     want = pallas_head._bwd(*args, interpret=True)
     ins = torch_inputs(args)
     got = score_head_bwd_plain(*ins)
-    mags = score_head_bwd_magnitude(*ins)
-    for name, g, w, m, like in zip(("dx", "dw1", "db1", "dw2", "db2"), got,
-                                   want, mags, ins):
+    for name, g, w, like in zip(("dx", "dw1", "db1", "dw2", "db2"), got,
+                                want, ins):
         assert g.dtype == like.dtype and g.shape == like.shape, name
-        assert parity.scores_close(as_f32(g), as_f32(w), scale=as_f32(m)), \
-            name
+    assert parity.scores_close(as_f32(got[0]), as_f32(want[0]),
+                               scale=as_f32(score_head_dx_magnitude(*ins)))
+    limits = score_head_weight_grad_limits(*ins)
+    for name, g, w, lim in zip(("dw1", "db1", "dw2", "db2"), got[1:],
+                               want[1:], limits):
+        w = torch.from_numpy(np.array(as_f32(w))).to(g.dtype)
+        assert weight_grad_error(g, w, lim) <= 1.0, name
+
+
+def _lose_rows(ins, keep):
+    """The weight gradients of the rows where ``keep`` is 1 only: what
+    a backward that lost the other rows' share would return."""
+    x, w1, b1, w2, b2, ds = ins
+    return score_head_bwd_plain(x, w1, b1, w2, b2,
+                                ds * keep.reshape(ds.shape))[1:]
+
+
+@pytest.mark.parametrize("fault", ["zeros", "every_other_cta",
+                                   "first_tile_of_each_cta", None])
+def test_weight_gradient_limits_catch_lost_rows(fault):
+    """At 64,000 rows (the card test's many-row-tile shape), where each
+    weight gradient is a sum that cancels to a few hundredths of its
+    absolute sum, the limits fail a backward that returns zeros, sums
+    every other CTA's partial or adds only the first row tile of each
+    CTA (64-row tiles, 8 a CTA), and pass the same sums taken in another
+    order (float64)."""
+    t, s, d, h = 64, 1000, 32, 128
+    ins = torch_inputs(head_inputs(t, s, d, h, 17))
+    want = score_head_bwd_plain(*ins)[1:]
+    limits = score_head_weight_grad_limits(*ins)
+    tile = torch.arange(t * s) // 64
+    if fault is None:
+        x, w1, b1, w2, _, ds = ins
+        x2, dsf = x.reshape(-1, d), ds.reshape(-1, 1)
+        hid = cuda_head._hidden(x2, w1, b1)
+        dh = torch.where(hid > 0, dsf * w2.float().t(),
+                         0.0).to(torch.bfloat16).double()
+        got = ((x2.double().t() @ dh).to(w1.dtype),
+               dh.sum(dim=0).to(b1.dtype),
+               (hid.double().t() @ dsf.to(torch.bfloat16).double())
+               .to(w2.dtype), dsf.double().sum(dim=0).to(ins[4].dtype))
+    elif fault == "zeros":
+        got = [torch.zeros_like(w) for w in want]
+    elif fault == "every_other_cta":
+        got = _lose_rows(ins, (tile // 8 % 2 == 0).float())
+    else:
+        got = _lose_rows(ins, (tile % 8 == 0).float())
+    errs = [weight_grad_error(g, w, lim)
+            for g, w, lim in zip(got, want, limits)]
+    if fault is None:
+        assert max(errs) <= 1.0, errs
+    else:
+        assert max(errs) > 4.0, errs
 
 
 def test_autograd_runs_the_plain_backward_on_cpu():
@@ -128,23 +187,33 @@ def test_autograd_runs_the_plain_backward_on_cpu():
 
 def test_magnitude_admits_a_flipped_relu_gate():
     """A unit whose pre-activation is zero to within the f32 order of
-    x . w1 is counted in full: the gradient with that gate flipped stays
-    within two bf16 ulps of the magnitude."""
+    x . w1 is counted in full: dx with that gate flipped stays within two
+    bf16 ulps of its magnitude, and dw1 and db1 within their limits."""
     x = torch.tensor([[[1.0, -1.0]]], dtype=torch.bfloat16)
     w1 = torch.tensor([[1.0, 0.5], [1.0, 0.25]], dtype=torch.bfloat16)
     b1 = torch.zeros(2, dtype=torch.bfloat16)
     w2 = torch.tensor([[1.0], [1.0]], dtype=torch.bfloat16)
     b2 = torch.zeros(1, dtype=torch.bfloat16)
     ds = torch.ones((1, 1))
-    dx, dw1, *_ = score_head_bwd_plain(x, w1, b1, w2, b2, ds)
-    mags = score_head_bwd_magnitude(x, w1, b1, w2, b2, ds)
+    dx, dw1, db1, *_ = score_head_bwd_plain(x, w1, b1, w2, b2, ds)
+    mag = score_head_dx_magnitude(x, w1, b1, w2, b2, ds)
     # unit 0 sits at exactly zero (shut); opened, dx gains w1[:, 0]
     flipped = dx.float() + w1[:, 0].float()
     assert parity.scores_close(as_f32(flipped), as_f32(dx),
-                               scale=as_f32(mags[0]))
+                               scale=as_f32(mag))
     assert not parity.scores_close(
         as_f32(flipped), as_f32(dx),
         scale=as_f32(dx.float().abs() + w1[:, 1].float().abs()))
+    # and dw1, db1 gain x and 1 in unit 0's column
+    lim_dw1, lim_db1, *_ = score_head_weight_grad_limits(x, w1, b1, w2, b2,
+                                                         ds)
+    opened = dw1.clone()
+    opened[:, 0] += x.reshape(-1)
+    assert weight_grad_error(opened, dw1, lim_dw1) <= 1.0
+    opened_b = db1.clone()
+    opened_b[0] += 1
+    assert weight_grad_error(opened_b, db1, lim_db1) <= 1.0
+    assert weight_grad_error(opened, dw1, torch.zeros_like(lim_dw1)) > 1.0
 
 
 def window(seed):
@@ -167,12 +236,18 @@ def jax_params():
 def test_fused_always_trajectory_matches_jax(jax_params):
     """Three sequence-supervised adam steps through the fused head (the
     reference's Pallas head in interpret mode, the port's plain K10 and
-    K11) with flash attention: the losses within rtol 1e-4, the params
-    within 2 lr a step."""
+    K11) with flash attention: the losses within rtol 1e-4; each param's
+    change within half a step (lr / 2) and one bf16 ulp of the param of
+    the reference's change, on at most 1/16 of its elements anything but
+    equal; and the head's params moved.  b2 is held only within 2 lr a
+    step: its gradient is zero in exact arithmetic (the sequence loss is
+    a softmax over each group's endpoints, which a shift shared by every
+    score leaves alone), so its steps are adam's response to rounding."""
     kw = dict(attention="flash_always", supervision="sequence",
               head="fused_always", learning_rate=LR, **SMALL)
     jmodel, tmodel = JaxModel(**kw), TemporalTrafficModel(**kw)
     jp, tp = jax_params, to_torch(jax_params)
+    start = {k: as_f32(v) for k, v in jp.items()}
     jstate, tstate = jmodel.init_opt_state(jp), tmodel.init_opt_state(tp)
     build.reset_launch_counts()
     for step in range(3):
@@ -185,9 +260,16 @@ def test_fused_always_trajectory_matches_jax(jax_params):
     assert not any(build.launch_counts().values())
     for k, p in tp.items():
         assert p.dtype == torch.bfloat16
-        np.testing.assert_allclose(as_f32(p), as_f32(jp[k]), rtol=0,
-                                   atol=2 * LR * 3, err_msg=k)
-
+        got, want = as_f32(p) - start[k], as_f32(jp[k]) - start[k]
+        if k == "b2":
+            np.testing.assert_allclose(got, want, rtol=0, atol=2 * LR * 3)
+            continue
+        ulp = parity.bf16_ulp(np.maximum(np.abs(as_f32(p)),
+                                         np.abs(as_f32(jp[k]))))
+        assert (np.abs(got - want) <= LR / 2 + ulp).all(), k
+        assert (got != want).mean() <= 1 / 16, k
+        if k in ("w1", "b1", "w2"):
+            assert (got != 0).mean() >= 0.5, k
 
 def test_converted_fused_params_give_the_reference_scores(jax_params):
     """A JAX ``head="fused_always"`` model's params, carried by
