@@ -19,14 +19,19 @@ kernel K6a once per batch.
 
 ``python -m aws_global_accelerator_controller_tpu_torch train [--model
 mlp|temporal] [--supervision last|sequence] [--remat] [--optimizer
-adam|flat_adam] [--guard] [--eval-every N] --steps N ...`` fits freshly
-initialised params on synthetic batches (the JAX package's ``train``
-loop, ``compute.py:621-781``, without its checkpoints) and prints the
-reference's keys (``step``, ``model``, ``loss``, ``preempted`` when a
-SIGTERM or SIGINT stopped it), ``device`` in place of ``backend`` and
-``rung``.  A loss line goes to stderr every ``steps // 10`` steps.
-Under ``--model temporal --supervision sequence`` a step runs the flash
-kernels K6b, K7 and K8 once each.
+adam|flat_adam] [--attention-chunk HEADS] [--guard] [--eval-every N]
+--steps N ...`` fits freshly initialised params on synthetic batches
+(the JAX package's ``train`` loop, ``compute.py:621-781``, without its
+checkpoints) and prints the reference's keys (``step``, ``model``,
+``loss``, ``preempted`` when a SIGTERM or SIGINT stopped it), ``device``
+in place of ``backend`` and ``rung``.  A loss line goes to stderr every
+``steps // 10`` steps.  Under ``--model temporal --supervision
+sequence`` a step runs the flash kernels K6b, K7 and K8 once each; with
+``--attention-chunk HEADS`` it splits the streams into calls of at most
+HEADS heads, and a call of at most 32 takes the fused one-sweep
+backward K9 in place of K7 and K8 (the reference's route), so at the
+defaults ``--attention-chunk 32`` runs 256 calls each of K6b and K9 a
+step.
 
 The params come from the port's own generator (``torch.Generator``
 seeded with ``--seed``) and the telemetry from numpy, so the numbers for
@@ -123,6 +128,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Temporal sequence supervision: recompute the "
                          "head's [T, S, H] hidden in the backward instead "
                          "of keeping it (same numbers, less memory).")
+    tr.add_argument("--attention-chunk", type=int, default=0,
+                    dest="attention_chunk", metavar="HEADS",
+                    help="Temporal: split the G*E streams axis into chunks "
+                         "of at most HEADS per flash call (exact: "
+                         "attention is per-head independent).  Chunks of "
+                         "<=32 ride the fused one-sweep flash backward "
+                         "(K9), which wide stream counts otherwise "
+                         "exceed.  0 = one call (default).")
     tr.add_argument("--optimizer", choices=("adam", "flat_adam"),
                     default="adam",
                     help="adam = per-param state (optax.adam's "
@@ -252,13 +265,19 @@ def evaluate(args: argparse.Namespace) -> dict:
 
 def train(args: argparse.Namespace) -> dict:
     """The ``train`` command's result (what it prints)."""
-    dev = resolve_device(args.device)
     temporal = args.model == "temporal"
+    if not temporal and args.attention_chunk:
+        raise SystemExit(
+            "--attention-chunk applies to the temporal family only "
+            f"(got --model {args.model})")
+    if args.attention_chunk < 0:
+        raise SystemExit("--attention-chunk must be >= 0")
+    dev = resolve_device(args.device)
     if temporal:
         model = TemporalTrafficModel(
             hidden_dim=args.hidden, learning_rate=args.lr,
             supervision=args.supervision, remat=args.remat,
-            optimizer=args.optimizer)
+            attention_chunk=args.attention_chunk, optimizer=args.optimizer)
     else:
         model = TrafficPolicyModel(hidden_dim=args.hidden,
                                    learning_rate=args.lr,

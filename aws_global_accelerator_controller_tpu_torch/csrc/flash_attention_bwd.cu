@@ -360,23 +360,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
 }
 
-// Dynamic shared memory above 48 KB (D = 128) must be allowed once per
-// kernel and device, before the first launch (so never inside a CUDA
-// graph capture, whose warm-up launches come first).
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, unsigned* allowed) {
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (*allowed & (1u << dev)) return 0;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *allowed |= 1u << dev;
-  return 0;
-}
-
 template <int kDPad, bool kChunked = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* m, const void* l, const void* dvec, void* dq,

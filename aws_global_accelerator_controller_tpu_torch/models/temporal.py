@@ -12,16 +12,18 @@ attention heads: q = k = v = [T, S, D].
   --supervision sequence``) attends every step through
   ``ops.cuda_attention.flash_attention`` when T >= ``FLASH_MIN_WINDOW``,
   else the dense reference: kernel K6a for a forward alone; under
-  autograd (``train_step``) kernel K6b, and K7 and K8 in the backward.
+  autograd (``train_step``) kernel K6b, and in the backward the route
+  the reference takes: the fused one-sweep K9 for a call of at most 32
+  heads whose f32 dq fits its budget, else K7 and K8.  ``train
+  --attention-chunk`` splits the streams into such calls.
 
 - ``head="fused"`` / ``"fused_always"`` scores a [T, S, D]
   representation through ``ops.cuda_head.score_head``: kernel K10, and
   K11 in the backward (``_use_fused_head``).
 
 Matmuls take bf16 operands with f32 sums and round to bf16, as XLA's
-bf16 dots do, and differentiate as those dots do.  The fused one-sweep
-backward (K9) that ``attention_chunk`` exists for in training, and the
-sharded planner, wait for later slices.
+bf16 dots do, and differentiate as those dots do.  The sharded planner
+and ring attention wait for later slices.
 """
 from __future__ import annotations
 
@@ -69,9 +71,9 @@ class TemporalTrafficModel(TrainableModel):
     its own backward, so remat skips it.
     ``attention_chunk`` > 0 splits the streams into chunks of at most
     that many heads, one kernel call each (exact: heads are
-    independent); ``train_step`` refuses it, since its purpose there is
-    the fused backward K9.  ``optimizer``: ``adam`` or ``flat_adam``
-    (``models.common.make_optimizer``).
+    independent); chunks of at most 32 heads take the fused one-sweep
+    backward K9 in training, as in the reference.  ``optimizer``:
+    ``adam`` or ``flat_adam`` (``models.common.make_optimizer``).
     """
 
     def __init__(self, feature_dim: int = 8, embed_dim: int = 32,
@@ -233,19 +235,6 @@ class TemporalTrafficModel(TrainableModel):
             return masked_ce_loss(seq, batch.mask, batch.target).mean()
         return masked_ce_loss(self.scores_last(params, window), batch.mask,
                               batch.target)
-
-    def train_step(self, params: Params, opt_state, window: torch.Tensor,
-                   batch: Batch):
-        """One optimizer step on (window, batch): (params, opt_state,
-        loss at the old params).  Under sequence supervision with the
-        flash path, the step runs K6b, K7 and K8 once each, and with a
-        fused head on the card K10 and K11 once each."""
-        if self.attention_chunk:
-            raise ValueError(
-                "attention_chunk > 0 in training is for the fused one-sweep "
-                "flash backward (kernel K9), which is not ported "
-                "(ROADMAP.md B1); train with attention_chunk=0")
-        return super().train_step(params, opt_state, window, batch)
 
 
 def attention_last_reference(q_last: torch.Tensor, k: torch.Tensor,

@@ -14,9 +14,14 @@ endpoint streams).  Like the reference's ``jax.custom_vjp`` (``:1038-
   (:func:`flash_attention_stats`, the reference's ``_stats_kernel``
   ``:301`` with ``normalize=True``), which also saves the per-row softmax
   stats m and l; its backward (:func:`flash_attention_bwd`) computes
-  dvec = rowsum(do * o) with plain torch ops and runs the two-sweep
-  backward, kernels K7 (:func:`flash_bwd_dq`, ``_dq_kernel`` ``:455``)
-  and K8 (:func:`flash_bwd_dkv`, ``_dkv_kernel`` ``:707``) in
+  dvec = rowsum(do * o) with plain torch ops and takes the reference's
+  route (``_flash_bwd_padded`` ``:885``), decided by the port's copy of
+  its gate (:func:`fused_bwd_route`): the fused one-sweep backward,
+  kernel K9 (:func:`flash_bwd_dqkv`, ``_dqkv_kernel`` ``:585``, in
+  ``csrc/flash_attention_dqkv.cu``), when a head's f32 dq fits the
+  reference's 2 MiB and the call has at most 32 heads; else the
+  two-sweep backward, kernels K7 (:func:`flash_bwd_dq`, ``_dq_kernel``
+  ``:455``) and K8 (:func:`flash_bwd_dkv`, ``_dkv_kernel`` ``:707``) in
   ``csrc/flash_attention_bwd.cu``.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
@@ -40,7 +45,10 @@ Arithmetic, shared by the kernels and the plain versions (``_prescale``
   (K6b: / max(l, 1), the same number, since l >= 1), rounded to bf16;
 - backward: p = exp(s - m) / max(l, 1) from the saved stats, dp = do.v^T,
   ds = p * (dp - dvec); dq = bf16(sum bf16(ds).k * D**-0.5), dk =
-  bf16(sum bf16(ds)^T.q'), dv = bf16(sum bf16(p)^T.do), f32 sums.
+  bf16(sum bf16(ds)^T.q'), dv = bf16(sum bf16(p)^T.do), f32 sums, dq
+  over K blocks and dk, dv over q blocks in ascending order on both
+  routes (K9 computes s, p, dp and ds once per live block pair for all
+  three, K7 and K8 once each).
 
 p is rounded against the running max, so the forward depends on the K
 block partition at the last-ulp level (o and l): the plain versions take
@@ -50,11 +58,12 @@ comparison with a kernel uses the kernel's :data:`BLOCK_K`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.build import Kernel, require_cuda
+from ..kernels.build import Kernel, library, require_cuda
 
 #: rows of q and keys of k/v per tile of the kernels
 BLOCK_K = 64
@@ -71,6 +80,67 @@ _FLASH_STATS = Kernel("flash_attention_stats", "agac_flash_attention_stats",
                       [_P] * 6 + _SIZES)
 _FLASH_DQ = Kernel("flash_bwd_dq", "agac_flash_bwd_dq", [_P] * 8 + _SIZES)
 _FLASH_DKV = Kernel("flash_bwd_dkv", "agac_flash_bwd_dkv", [_P] * 9 + _SIZES)
+_FLASH_DQKV = Kernel("flash_bwd_dqkv", "agac_flash_bwd_dqkv",
+                     [_P] * 11 + _SIZES)
+
+# The reference's route for the backward (``ops/pallas_attention.py``),
+# copied: its block rule (``_auto_block`` ``:116``, ``_resolve_blocks``
+# ``:129`` with no explicit blocks, over the one band of its committed
+# ``ops/flash_blocks.json``) and the fused backward's gate
+# (``:528-558``).  The blocks here decide the route only: the port's
+# kernels tile by :data:`BLOCK_K`.
+_LANE = 128
+_SUBLANE = 16
+#: (t_max, block_q, block_k) bands of the reference's block table
+_TUNED_BANDS = ((2048, 1024, 1024),)
+#: a head's f32 dq (padded length x lane-padded width x 4) at most this
+_FUSED_BWD_DQ_BYTES = 2 * 2 ** 20
+#: and at most this many heads a call
+_FUSED_BWD_MAX_HEADS = 32
+
+
+def _auto_block(t: int) -> int:
+    """The reference's heuristic block: T rounded up to the sublane
+    tile, at most 1024."""
+    return min(1024, -(-t // _SUBLANE) * _SUBLANE)
+
+
+def _reference_blocks(t: int) -> Tuple[int, int]:
+    """The reference's (block_q, block_k) for attention over T: its
+    table's band, each side capped by the heuristic; past the table,
+    the heuristic."""
+    for t_max, bq, bk in _TUNED_BANDS:
+        if t <= t_max:
+            return min(bq, _auto_block(t)), min(bk, _auto_block(t))
+    return _auto_block(t), _auto_block(t)
+
+
+def _fused_bwd_eligible(tp_q: int, tp_k: int, dp: int, h: int) -> bool:
+    """The reference's gate of its fused one-sweep backward, on its
+    padded lengths ``tp_q``, ``tp_k``, lane-padded width ``dp`` and head
+    count ``h``."""
+    return (tp_q * dp * 4 <= _FUSED_BWD_DQ_BYTES and tp_q == tp_k
+            and h <= _FUSED_BWD_MAX_HEADS)
+
+
+def fused_bwd_route(t: int, h: int, d: int) -> bool:
+    """Whether the backward of flash attention over [t, h, d] takes the
+    fused one-sweep kernel K9 (else K7 and K8): the reference's choice
+    at its own blocks, with d the true head width."""
+    if t == 0:
+        return False
+    block_q, block_k = _reference_blocks(t)
+    return _fused_bwd_eligible(-(-t // block_q) * block_q,
+                               -(-t // block_k) * block_k,
+                               -(-d // _LANE) * _LANE, h)
+
+
+def backward_hw_matmul_factor(t: int, h: int, d: int) -> float:
+    """Matmul passes of forward + backward over the forward's two, for
+    the route these shapes take (the reference's ``:561-582``): 3.5 on
+    the fused backward (s^T, dv, dp, dk, dq), 4.5 on the two sweeps (s,
+    dp, dq; s^T, dp^T, dv, dk)."""
+    return 3.5 if fused_bwd_route(t, h, d) else 4.5
 
 
 def _scale(x: torch.Tensor, scale: Optional[float]) -> float:
@@ -200,6 +270,40 @@ def flash_bwd_dkv_plain(q, k, v, do, m, l, dvec, causal: bool = True,
         dk += _bf16(ds).transpose(1, 2) @ qh[:, rows]
         dv += _bf16(p).transpose(1, 2) @ doh[:, rows]
     return (dk.to(k.dtype).transpose(0, 1), dv.to(v.dtype).transpose(0, 1))
+
+
+def flash_bwd_dqkv_plain(q, k, v, do, m, l, dvec, causal: bool = True,
+                         block_q: int = BLOCK_K, block_k: int = BLOCK_K,
+                         scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The plain version of kernel K9: (dq, dk, dv) [T, H, D] in q's, k's
+    and v's dtypes in one sweep, K blocks of ``block_k`` outer and the
+    live q blocks of ``block_q`` inner; one score tile per pair feeds
+    dv_j += bf16(p)^T.do_i, dk_j += bf16(ds)^T.q'_i and dq_i +=
+    bf16(ds).k_j (f32), dq times the scale once at the end."""
+    T = q.shape[0]
+    scale = _scale(q, scale)
+    qh, kh, vh, doh = (_heads(_prescale(q, scale)), _heads(k), _heads(v),
+                       _heads(do))
+    dq, dk, dv = (torch.zeros_like(x) for x in (qh, kh, vh))
+    pos = torch.arange(T, device=q.device)
+    for j0 in range(0, T, block_k):
+        keys = slice(j0, j0 + block_k)
+        for i0 in range(j0 // block_q * block_q if causal else 0, T,
+                        block_q):
+            rows = slice(i0, i0 + block_q)
+            s = _scores(qh[:, rows], kh[:, keys], pos[rows], pos[keys],
+                        causal)
+            p = (torch.exp(s - m[:, rows, None])
+                 / l[:, rows, None].clamp_min(1.0))
+            dp = doh[:, rows] @ vh[:, keys].transpose(1, 2)
+            ds = _bf16(p * (dp - dvec[:, rows, None]))
+            dv[:, keys] += _bf16(p).transpose(1, 2) @ doh[:, rows]
+            dk[:, keys] += ds.transpose(1, 2) @ qh[:, rows]
+            dq[:, rows] += ds @ kh[:, keys]
+    return ((dq * scale).to(q.dtype).transpose(0, 1),
+            dk.to(k.dtype).transpose(0, 1), dv.to(v.dtype).transpose(0, 1))
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, m, l, causal: bool = True,
@@ -369,13 +473,52 @@ def flash_bwd_dkv(q, k, v, do, m, l, dvec, causal: bool = True
     return _unpad(dk, D), _unpad(dv, D)
 
 
+def flash_bwd_dqkv(q, k, v, do, m, l, dvec, causal: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) [T, H, D] bf16: kernel K9 on CUDA tensors (the checks
+    of :func:`flash_bwd_dq`; an f32 workspace for the heads' dq
+    accumulators),
+    :func:`flash_bwd_dqkv_plain` at :data:`BLOCK_K` on CPU tensors."""
+    if _on_cpu(q, k, v, do, m, l, dvec):
+        return flash_bwd_dqkv_plain(q, k, v, do, m, l, dvec, causal)
+    D = q.shape[-1]
+    q, k, v, do = _pad_width(q, k, v, do)
+    dev, T, H, Dp = _check("flash_bwd_dqkv", q, k, v, do)
+    _check_stats("flash_bwd_dqkv", dev, T, H, m, l, dvec)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel():
+        ws = torch.empty(_dqkv_workspace_floats(T, H, Dp),
+                         dtype=torch.float32, device=dev)
+        _FLASH_DQKV(dev, q, k, v, do, m, l, dvec, dq, dk, dv, ws, T, H, Dp,
+                    D ** -0.5, int(causal))
+    return _unpad(dq, D), _unpad(dk, D), _unpad(dv, D)
+
+
+@functools.lru_cache(maxsize=None)
+def _dqkv_workspace_fn():
+    fn = library().agac_flash_bwd_dqkv_workspace
+    fn.argtypes = [_I, _I, _I]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _dqkv_workspace_floats(T: int, H: int, Dp: int) -> int:
+    """Floats of K9's dq workspace at these sizes,
+    as the kernel's source computes them."""
+    return _dqkv_workspace_fn()(T, H, Dp)
+
+
 def flash_attention_bwd(q, k, v, o, do, m, l, causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """(dq, dk, dv) of the flash attention whose forward gave o, m, l:
-    dvec with plain torch ops, then K7 and K8 (their plain versions on
+    dvec with plain torch ops, then the reference's route
+    (:func:`fused_bwd_route`): K9, or K7 and K8 (their plain versions on
     CPU tensors)."""
     dvec = attention_dvec(o, do)
+    T, H, D = q.shape
+    if fused_bwd_route(T, H, D):
+        return flash_bwd_dqkv(q, k, v, do, m, l, dvec, causal)
     return (flash_bwd_dq(q, k, v, do, m, l, dvec, causal),
             *flash_bwd_dkv(q, k, v, do, m, l, dvec, causal))
 
@@ -407,8 +550,8 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q, k, v [T, H, D] bfloat16 -> [T, H, D] bfloat16 causal flash
-    attention: :class:`FlashAttention` (K6b, then K7 and K8 in the
-    backward) when autograd records and an input requires a gradient,
+    attention: :class:`FlashAttention` (K6b, then K9, or K7 and K8, in
+    the backward) when autograd records and an input requires a gradient,
     else the forward alone (K6a); on CPU tensors, their plain versions."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal)

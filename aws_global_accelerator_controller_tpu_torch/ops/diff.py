@@ -11,6 +11,8 @@ from typing import Iterable, Tuple
 
 import torch
 
+from ..device import Device, resolve_device
+
 # padding slot (ids are non-negative)
 EMPTY = -1
 
@@ -64,7 +66,8 @@ def plan_observed_diff(desired: torch.Tensor, current: torch.Tensor,
     return to_add, to_remove, in_both, observed_w
 
 
-def hash_ids(ids: Iterable[str], device="cpu") -> torch.Tensor:
-    """Stable non-negative int32 hashes for ARN strings (31-bit CRC)."""
+def hash_ids(ids: Iterable[str], device: Device = "cuda") -> torch.Tensor:
+    """Stable non-negative int32 hashes for ARN strings (31-bit CRC), on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return torch.tensor([zlib.crc32(s.encode()) & 0x7FFFFFFF for s in ids],
-                        dtype=torch.int32, device=device)
+                        dtype=torch.int32, device=resolve_device(device))

@@ -31,33 +31,48 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
    defaults (a 64-step window over 256 x 32 streams, D = 32, hidden 128)
    for 10 steps: exactly one launch each of the flash forward with stats
    (K6b) and the backward sweeps (K7, K8) a step, and none of the plain
-   forward (K6a); then the same command for 3 steps on the card and on
-   the CPU, whose final losses must agree within ``TRAIN_LOSS_RTOL``;
+   forward (K6a) or of K9; then the same command for 3 steps on the
+   card and on the CPU, whose final losses must agree within
+   ``TRAIN_LOSS_RTOL``;
 8. runs one ``train_step`` at the production temporal shape (phase 6's)
    with adam: one K6b, K7 and K8 launch; every parameter's gradient held
    to the same gradient through the dense reference attention within
    the JAX package's flash-vs-dense tolerance (``parity.grads_close``);
    then times three steps;
-9. runs ``train --model mlp`` for 3 steps on the card and on the CPU
-   (dense, as in the reference: no kernel);
-10. trains ``TemporalTrafficModel(head="fused", supervision="sequence")``
+9. runs ``train --model temporal --supervision sequence
+   --attention-chunk 32`` at phase 7's defaults for 10 steps: the 8192
+   streams in 256 calls of 32 heads a step, each with one launch of K6b
+   and of the fused one-sweep backward (K9), the reference's route for a
+   call of at most 32 heads, and none of K6a, K7 or K8; then 3 steps on
+   the card against 3 on the CPU (``TRAIN_LOSS_RTOL``); its time a step
+   is recorded beside phase 7's (the same command, unchunked);
+10. runs one ``train_step`` at phase 8's shape with ``attention_chunk=
+    32``: 4 calls, 4 launches each of K6b and K9, none of K7 or K8; every
+    parameter's gradient held to the unchunked model's (K7 and K8) on
+    the card (``parity.grads_close``, and bit for bit); then times both
+    models' steps;
+11. runs ``train --model mlp`` for 3 steps on the card and on the CPU
+    (dense, as in the reference: no kernel);
+12. trains ``TemporalTrafficModel(head="fused", supervision="sequence")``
     at the train command's default shape for 10 steps on the card: one
     launch each of the fused score head's forward (K10) and backward
     (K11) a step, beside K6b, K7 and K8; then 3 steps on the card
     against 3 on the CPU (``head="fused_always"``, the kernels' plain
     versions), and one batch's loss and gradients against the dense head
     on the card; and times 10 steps of the dense-head model beside it;
-11. holds every kernel against its plain PyTorch version on the card, at
+13. holds every kernel against its plain PyTorch version on the card, at
     the shapes the paths give it and at widths past one tile (K3 at
     H = 256, the flash kernels at D = 160), and times both (and, where
-    one exists, a PyTorch call computing the same function); then times
-    the flash kernel against the dense reference attention at short
-    windows (the ``FLASH_MIN_WINDOW`` crossover).
+    one exists, a PyTorch call computing the same function; for K9 also
+    K7 + K8 on its inputs); then times the flash kernel against the
+    dense reference attention at short windows (the
+    ``FLASH_MIN_WINDOW`` crossover).
 
-Before each of phases 1-10 every launch count is set to 0; after each
+Before each of phases 1-12 every launch count is set to 0; after each
 the script fails unless every kernel that phase runs was launched (and,
 for the flash and head kernels, launched exactly as often as the path
-calls them: the head kernels never outside phase 10).  Phase 3 reads its counts after the last churn wave, demands
+calls them: K9 only in phases 9 and 10, the head kernels only in phase
+12).  Phase 3 reads its counts after the last churn wave, demands
 that the churn waves alone launched each of their kernels, and reports
 the full repack's launches apart.
 
@@ -121,8 +136,12 @@ TRAIN_LOSS_RTOL = 1e-3
 #: steps timed after the production-shape train step
 SEQ_TRAIN_TIMED_STEPS = 3
 #: the flash kernels' launch-count names
-K6A, K6B, K7, K8 = ("flash_attention", "flash_attention_stats",
-                    "flash_bwd_dq", "flash_bwd_dkv")
+K6A, K6B, K7, K8, K9 = ("flash_attention", "flash_attention_stats",
+                        "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dqkv")
+#: heads a flash call in the chunked train phases: the reference's gate
+#: of its fused backward (``_FUSED_BWD_MAX_HEADS``), what
+#: ``--attention-chunk`` is for
+ATTENTION_CHUNK = 32
 #: the fused score head's launch-count names
 K10, K11 = "score_head_fwd", "score_head_bwd"
 #: widths past one tile of the kernels: K3's hidden layer, the flash
@@ -705,6 +724,95 @@ def _flash_train():
     return [_other_shape(a, b, c) for a, b, c in zip(main, other, wide)]
 
 
+def _k9_one(T, S, D, seed, iters=20, eager_iters=50):
+    """K9 at one shape, on K6b's o, m, l and a random bf16 cotangent:
+    against its plain version at the kernels' block (dq, dk, dv within 2
+    bf16 ulps of what each sums), two runs held bit for bit, and against
+    K7 and K8 on the same inputs, within the same tolerance and bit for
+    bit (K9 does their products in their f32 order); timed beside its
+    plain version, K7 + K8 and PyTorch's SDPA backward."""
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch.ops import (
+        cuda_attention as ca,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(T, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    shape = f"T={T} S={S} D={D}"
+    o, m, l = ca.flash_attention_stats(q, k, v)
+    dvec = ca.attention_dvec(o, do)
+    got = ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec)
+    want = ca.flash_bwd_dqkv_plain(q, k, v, do, m, l, dvec)
+    sweeps = (ca.flash_bwd_dq(q, k, v, do, m, l, dvec),
+              *ca.flash_bwd_dkv(q, k, v, do, m, l, dvec))
+    mags = ca.flash_attention_bwd_magnitude(q, k, v, o, do, m, l)
+    torch.cuda.synchronize()
+    errs, sweep_ulps = [], []
+    for name, a, b, c, mag in zip(("dq", "dk", "dv"), got, want, sweeps,
+                                  mags):
+        errs.append(_check_close(f"flash_bwd_dqkv {name} {shape}", a, b,
+                                 mag))
+        sweep_ulps.append(_check_close(
+            f"flash_bwd_dqkv {name} {shape} vs K7, K8", a, c, mag)[2])
+    again = ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec)
+    check(all(torch.equal(a, b) for a, b in zip(again, got)),
+          f"flash_bwd_dqkv {shape}: two runs differ")
+    same_as_sweeps = all(torch.equal(a, b) for a, b in zip(got, sweeps))
+    check(same_as_sweeps,
+          f"flash_bwd_dqkv {shape}: not bit for bit K7's and K8's")
+    del want, sweeps, mags, again
+
+    heads = [x.transpose(0, 1).unsqueeze(0).contiguous().requires_grad_(True)
+             for x in (q, k, v)]
+    dout = do.transpose(0, 1).unsqueeze(0).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd_bwd = time_device(lambda: torch.autograd.grad(
+        sdpa(*heads, is_causal=True), heads, dout), iters)
+    sdpa_fwd = time_device(lambda: sdpa(*heads, is_causal=True), iters)
+    pairs = T * (T + 1) / 2 * S          # live (query, key) pairs
+    # the backward's matmul passes beyond the forward's two (QK^T, PV)
+    # on this route: 5 products of 2 D flops a live pair
+    check(ca.fused_bwd_route(T, S, D),
+          f"flash_bwd_dqkv {shape}: not on the reference's fused route")
+    bwd_flops = (ca.backward_hw_matmul_factor(T, S, D) - 1) * 4.0 * D * pairs
+    rec = _record(
+        K9, f"{SRC}/flash_attention_dqkv.cu",
+        f"{REF}/ops/pallas_attention.py:585", shape,
+        max(e[0] for e in errs), max(e[1] for e in errs),
+        {**timings(lambda: ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec),
+                   lambda: ca.flash_bwd_dqkv_plain(q, k, v, do, m, l,
+                                                   dvec),
+                   iters=iters, eager_iters=eager_iters),
+         "k7_k8_ms": time_device(lambda: (
+             ca.flash_bwd_dq(q, k, v, do, m, l, dvec),
+             ca.flash_bwd_dkv(q, k, v, do, m, l, dvec)), iters),
+         "library_ms": sdpa_fwd_bwd - sdpa_fwd,
+         "library_fwd_bwd_ms": sdpa_fwd_bwd,
+         "library_note": "SDPA backward (fwd+bwd minus fwd): dq, dk and "
+                         "dv together"},
+        # q, k, v, do, m, l, dvec read, dq, dk, dv written
+        bound_ms(14 * T * S * D + 12 * T * S, bwd_flops, BF16_FLOP_PER_S))
+    rec["max_ulps_of_magnitude"] = max(e[2] for e in errs)
+    rec["max_ulps_of_magnitude_vs_k7_k8"] = max(sweep_ulps)
+    rec["bit_identical_to_k7_k8"] = same_as_sweeps
+    rec["dq_workspace_floats"] = ca._dqkv_workspace_floats(
+        T, S, -(-D // ca.HEAD_DIM_MULTIPLE) * ca.HEAD_DIM_MULTIPLE)
+    return rec
+
+
+def _k9():
+    """K9 at a chunk of the train command's default shape, at a chunk
+    of the production shape and at a head width of 160 (in two
+    128-column chunks)."""
+    return _other_shape(_k9_one(64, ATTENTION_CHUNK, 32, 15),
+                        _k9_one(SEQ_WINDOW, ATTENTION_CHUNK, SEQ_EMBED, 16,
+                                iters=3, eager_iters=5),
+                        _k9_one(1024, ATTENTION_CHUNK, WIDE_HEAD, 17,
+                                iters=3, eager_iters=5))
+
+
 def _head_inputs(T, S, D, H, seed):
     """x [T, S, D] bf16 (unit normal, as an attended representation),
     the head's params at the model's init scales with small random
@@ -827,7 +935,7 @@ def _head_rows():
 def phase_kernels() -> list:
     return [_k1(), _k2(), _other_shape(_k3(), _k3(WIDE_HIDDEN)),
             _other_shape(_k3_scores(), _k3_scores(WIDE_HIDDEN)), _k4(),
-            _k6a(), *_flash_train(), *_head_rows()]
+            _k6a(), *_flash_train(), _k9(), *_head_rows()]
 
 
 def phase_flash_crossover(S: int = 1024, D: int = 32,
@@ -1080,6 +1188,27 @@ def phase_temporal_train(device: str, steps: int = TRAIN_STEPS,
     return out
 
 
+def phase_temporal_chunk_train(device: str, steps: int = TRAIN_STEPS,
+                               groups: int = 256, endpoints: int = 32,
+                               hidden: int = 128, window: int = 64,
+                               chunk: int = ATTENTION_CHUNK,
+                               unchunked_ms_per_step=None,
+                               launch_counts=None) -> dict:
+    """``train --model temporal --supervision sequence --attention-chunk
+    32`` on ``device`` (the other sizes default to the command's own),
+    checked against the CPU; ``unchunked_ms_per_step`` is the same
+    command's unchunked time, as ``phase_temporal_train`` measured it in
+    this run, recorded beside the chunked one."""
+    argv = _train_argv("temporal", groups, endpoints, hidden, window)
+    out = _train_vs_cpu("temporal_chunk_train",
+                        [*argv, "--attention-chunk", str(chunk)], device,
+                        steps, launch_counts)
+    out["attention_chunk"] = chunk
+    out["calls_per_step"] = -(-groups * endpoints // chunk)
+    out["unchunked_ms_per_step"] = unchunked_ms_per_step
+    return out
+
+
 def phase_mlp_train(device: str, steps: int = TRAIN_STEPS,
                     groups: int = 256, endpoints: int = 32,
                     hidden: int = 128, launch_counts=None) -> dict:
@@ -1163,6 +1292,104 @@ def phase_temporal_train_seq(device: str, steps: int = SEQ_WINDOW,
             "loss": float(loss), "first_step_ms": ms,
             "ms_per_step": step_ms, "timed_steps": timed_steps,
             "grad_error_vs_reference": errs, "launches": launches}
+
+
+def phase_temporal_chunk_train_seq(device: str, steps: int = SEQ_WINDOW,
+                                   groups: int = SEQ_GROUPS,
+                                   endpoints: int = SEQ_ENDPOINTS,
+                                   embed_dim: int = SEQ_EMBED,
+                                   hidden_dim: int = SEQ_HIDDEN,
+                                   chunk: int = ATTENTION_CHUNK,
+                                   timed_steps: int = SEQ_TRAIN_TIMED_STEPS,
+                                   launch_counts=None) -> dict:
+    """One adam ``train_step`` at ``phase_temporal_train_seq``'s shape
+    with ``attention_chunk=chunk`` on ``device`` (128 streams: 4 calls,
+    each backward on K9); every parameter's gradient held to the
+    unchunked model's (one call, the backward on K7 and K8) within the
+    gradient tolerance (``parity.grads_close``) and, on the card, bit for
+    bit (each head's K6b does not depend on the call's other heads, and
+    K9 does K7's and K8's products in their f32 order); then
+    ``timed_steps`` steps of each model timed."""
+    import numpy as np
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch import parity
+    from aws_global_accelerator_controller_tpu_torch.device import (
+        resolve_device,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.common import (
+        value_and_grad,
+    )
+    from aws_global_accelerator_controller_tpu_torch.models.temporal import (
+        TemporalTrafficModel,
+        synthetic_window,
+    )
+
+    dev = resolve_device(device)
+    kw = dict(embed_dim=embed_dim, hidden_dim=hidden_dim,
+              supervision="sequence")
+    chunked = TemporalTrafficModel(attention_chunk=chunk, **kw)
+    whole = TemporalTrafficModel(**kw)
+    params = chunked.init_params(torch.Generator().manual_seed(0),
+                                 device=dev)
+    window, batch = synthetic_window(np.random.default_rng(0), steps=steps,
+                                     groups=groups, endpoints=endpoints,
+                                     per_step=True, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    new, _, loss = chunked.train_step(
+        params, chunked.init_opt_state(params), window, batch)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts() if launch_counts else {}
+    check(math.isfinite(float(loss)),
+          f"temporal_chunk_train_seq: loss {loss}")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in new.values()),
+          "temporal_chunk_train_seq: non-finite params after the step")
+    c_loss, c_grads = value_and_grad(chunked.loss, params, window, batch)
+    w_loss, w_grads = value_and_grad(whole.loss, params, window, batch)
+    errs = {k: parity.grad_error(_host(g.float()),
+                                 _host(w_grads[k].float()))
+            for k, g in c_grads.items()}
+    check(all(e <= 1.0 for e in errs.values()),
+          f"temporal_chunk_train_seq: chunked (K9) vs unchunked (K7, K8) "
+          f"gradients (error / tolerance, rtol {parity.GRAD_RTOL} atol "
+          f"{parity.GRAD_ATOL}): {errs}")
+    equal = all(torch.equal(g, w_grads[k]) for k, g in c_grads.items())
+    check(equal or dev.type != "cuda",
+          "temporal_chunk_train_seq: chunked (K9) and unchunked (K7, K8) "
+          "gradients differ on the card")
+    loss_rel = abs(float(c_loss) - float(w_loss)) / abs(float(w_loss))
+    check(loss_rel <= 1e-4, f"temporal_chunk_train_seq: chunked loss "
+          f"{float(c_loss)} vs unchunked {float(w_loss)}")
+    del c_grads, w_grads
+
+    def step_ms(model):
+        p, state = params, model.init_opt_state(params)
+        p, state, _ = model.train_step(p, state, window, batch)   # warm
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            p, state, lo = model.train_step(p, state, window, batch)
+        sync()
+        check(math.isfinite(float(lo)),
+              f"temporal_chunk_train_seq: loss {lo}")
+        return (time.perf_counter() - t0) * 1e3 / max(timed_steps, 1)
+
+    return {"phase": "temporal_chunk_train_seq", "device": str(dev),
+            "steps": steps, "streams": groups * endpoints,
+            "attention_chunk": chunk, "embed_dim": embed_dim,
+            "hidden_dim": hidden_dim, "loss": float(loss),
+            "first_step_ms": ms, "ms_per_step": step_ms(chunked),
+            "unchunked_ms_per_step": step_ms(whole),
+            "timed_steps": timed_steps, "loss_rel_err_vs_unchunked":
+            loss_rel, "grad_error_vs_unchunked": errs,
+            "grads_equal_to_unchunked": equal, "launches": launches}
 
 
 def phase_temporal_fused_train(device: str, steps: int = TRAIN_STEPS,
@@ -1423,15 +1650,17 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def run_path_phase(name, fn, expect, build, exact=None):
+def run_path_phase(name, fn, expect, build, records, exact=None):
     """Zero the launch counts, drive one phase of the main path, and
     demand that each kernel in ``expect`` launched in it and each kernel
     in ``exact`` exactly that many times (the phase reads the counts
-    right after its path ran)."""
+    right after its path ran); the phase's record goes into
+    ``records`` under ``name``."""
     build.reset_launch_counts()
     out = fn(build.launch_counts)
     counts = {k: v for k, v in out["launches"].items() if v}
     out["launches"] = counts
+    records[name] = out
     missing = [k for k in expect if counts.get(k, 0) == 0]
     check(not missing, f"{name}: kernels never launched: {missing}")
     for k, n in (exact or {}).items():
@@ -1462,8 +1691,14 @@ def main() -> int:
 
     # the path first: its first use of the card runs the device probe
     # (K1), as in any fresh process
-    totals = {}
-    train_once = {K6B: 1, K7: 1, K8: 1, K6A: 0}
+    totals, records = {}, {}
+    train_once = {K6B: 1, K7: 1, K8: 1, K9: 0, K6A: 0}
+    # flash calls a step with --attention-chunk: the train command's
+    # default 256 x 32 streams, and the production shape's 8 x 16
+    train_calls = 256 * 32 // ATTENTION_CHUNK
+    seq_calls = SEQ_GROUPS * SEQ_ENDPOINTS // ATTENTION_CHUNK
+    chunked_once = {K6B: train_calls, K9: train_calls, K7: 0, K8: 0,
+                    K6A: 0}
     no_head = {K10: 0, K11: 0}
     path = (("plan", lambda c: phase_plan("cuda", launch_counts=c),
              ("probe_double", "fused_mlp_plan"), no_head),
@@ -1488,6 +1723,18 @@ def main() -> int:
             ("temporal_train_seq",
              lambda c: phase_temporal_train_seq("cuda", launch_counts=c),
              (K6B, K7, K8), {**train_once, **no_head}),
+            ("temporal_chunk_train",
+             lambda c: phase_temporal_chunk_train(
+                 "cuda", launch_counts=c, unchunked_ms_per_step=records[
+                     "temporal_train"]["ms_per_step"]),
+             (K6B, K9),
+             {**{k: n * TRAIN_STEPS for k, n in chunked_once.items()},
+              **no_head}),
+            ("temporal_chunk_train_seq",
+             lambda c: phase_temporal_chunk_train_seq("cuda",
+                                                      launch_counts=c),
+             (K6B, K9), {K6B: seq_calls, K9: seq_calls, K7: 0, K8: 0,
+                         K6A: 0, **no_head}),
             ("mlp_train", lambda c: phase_mlp_train("cuda", launch_counts=c),
              (), {**{k: 0 for k in train_once}, **no_head}),
             ("temporal_fused_train",
@@ -1497,7 +1744,7 @@ def main() -> int:
               {**train_once, K10: 1, K11: 1}.items()}))
     for name, fn, expect, exact in path:
         t0 = time.perf_counter()
-        counts = run_path_phase(name, fn, expect, build, exact)
+        counts = run_path_phase(name, fn, expect, build, records, exact)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         log(json.dumps({"phase": name + "_wall",

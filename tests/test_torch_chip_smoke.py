@@ -98,3 +98,27 @@ def test_temporal_fused_train_phase_rehearses_on_cpu():
     assert out["loss_rel_err_vs_dense_head"] == 0
     assert max(out["grad_error_vs_dense_head"].values()) == 0
     assert not any(out["launches"].values())
+
+
+def test_temporal_chunk_train_phase_rehearses_on_cpu():
+    """12 streams in calls of 5: the fused route's plain versions on the
+    CPU, equal to the unchunked command's."""
+    build.reset_launch_counts()
+    out = chip_smoke.phase_temporal_chunk_train(
+        "cpu", steps=4, groups=3, endpoints=4, hidden=16, chunk=5,
+        launch_counts=build.launch_counts)
+    assert out["device"] == "cpu" and out["step"] == 4
+    assert (out["attention_chunk"], out["calls_per_step"]) == (5, 3)
+    assert out["loss_rel_err_vs_cpu"] == 0
+    assert not any(out["launches"].values())
+
+
+def test_temporal_chunk_train_seq_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_temporal_chunk_train_seq(
+        "cpu", steps=130, groups=2, endpoints=5, embed_dim=32,
+        hidden_dim=32, chunk=4, timed_steps=1)
+    assert out["streams"] == 10 and out["attention_chunk"] == 4
+    assert set(out["grad_error_vs_unchunked"]) == {
+        "embed", "wq", "wk", "wv", "w1", "b1", "w2", "b2"}
+    assert max(out["grad_error_vs_unchunked"].values()) <= 1.0
+    assert out["loss_rel_err_vs_unchunked"] <= 1e-4

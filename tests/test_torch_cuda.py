@@ -40,6 +40,12 @@ from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
+    flash_bwd_dqkv,
+    flash_bwd_dqkv_plain,
+    fused_bwd_route,
+)
+from aws_global_accelerator_controller_tpu_torch.ops import (
+    cuda_attention as ca,
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_head import (
     score_head,
@@ -422,14 +428,19 @@ def test_flash_stats_and_backward_kernels_match_plain_versions(cuda, T, D,
         assert parity.attention_close(_host(g), _host(w), _host(mg)), name
 
 
-def test_flash_backward_is_reproducible_and_takes_a_strided_cotangent(cuda):
+@pytest.mark.parametrize("S", [16, 40])
+def test_flash_backward_is_reproducible_and_takes_a_strided_cotangent(cuda,
+                                                                      S):
     """Two backward runs agree bit for bit (no atomics), and autograd
     through flash_attention takes a strided cotangent as its contiguous
-    copy: one K6b, K7 and K8 launch a backward, no K6a."""
-    q, k, v = _qkv(cuda, 130, 16, 32, 5)
-    wide = _qkv(cuda, 130, 32, 32, 6)[0]
+    copy, on the reference's route: at 16 heads one K6b and one K9
+    launch, at 40 heads one K6b, K7 and K8; no K6a."""
+    q, k, v = _qkv(cuda, 130, S, 32, 5)
+    wide = _qkv(cuda, 130, 2 * S, 32, 6)[0]
     do = wide[:, ::2]
     assert not do.is_contiguous()
+    fused = fused_bwd_route(130, S, 32)
+    assert fused == (S <= 32)
     runs = []
     for _ in range(2):
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -438,12 +449,63 @@ def test_flash_backward_is_reproducible_and_takes_a_strided_cotangent(cuda):
         runs.append(torch.autograd.grad(out, leaves, do))
         counts = build.launch_counts()
         assert (counts["flash_attention_stats"], counts["flash_bwd_dq"],
-                counts["flash_bwd_dkv"], counts["flash_attention"]) == (
-                    1, 1, 1, 0)
+                counts["flash_bwd_dkv"], counts["flash_bwd_dqkv"],
+                counts["flash_attention"]) == (
+                    (1, 0, 0, 1, 0) if fused else (1, 1, 1, 0, 0))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     o, m, l = flash_attention_stats(q, k, v)
     want = flash_attention_bwd(q, k, v, o, do.contiguous(), m, l)
     assert all(torch.equal(a, b) for a, b in zip(runs[0], want))
+
+
+def _fused_backward_matches(cuda, T, S, D, causal, seed):
+    """K9 against its plain version and against K7 and K8, on K6b's o, m,
+    l and a random cotangent: dq, dk and dv within 2 bf16 ulps of the
+    magnitude each sums; two K9 runs bit for bit."""
+    q, k, v = _qkv(cuda, T, S, D, seed)
+    do = _qkv(cuda, T, S, D, seed + 1)[0]
+    o, m, l = flash_attention_stats(q, k, v, causal)
+    dvec = attention_dvec(o, do)
+    build.reset_launch_counts()
+    got = flash_bwd_dqkv(q, k, v, do, m, l, dvec, causal)
+    counts = build.launch_counts()
+    assert (counts["flash_bwd_dqkv"], counts["flash_bwd_dq"],
+            counts["flash_bwd_dkv"]) == (1, 0, 0)
+    torch.cuda.synchronize()
+    want = flash_bwd_dqkv_plain(q, k, v, do, m, l, dvec, causal)
+    sweeps = (flash_bwd_dq(q, k, v, do, m, l, dvec, causal),
+              *flash_bwd_dkv(q, k, v, do, m, l, dvec, causal))
+    mags = flash_attention_bwd_magnitude(q, k, v, o, do, m, l, causal)
+    for name, g, w, sw, mg in zip(("dq", "dk", "dv"), got, want, sweeps,
+                                  mags):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert parity.attention_close(_host(g), _host(w), _host(mg)), name
+        assert parity.attention_close(_host(g), _host(sw), _host(mg)), name
+    again = flash_bwd_dqkv(q, k, v, do, m, l, dvec, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 130, 200])
+@pytest.mark.parametrize("D", [16, 32, 40, 128, 20, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_kernel_matches_plain_version(cuda, T, D, causal):
+    """K9 at one K block (T <= 64) and several with a ragged last one
+    (65, 130, 200), D in one tile (16, 32, 128), padded in the kernel
+    (40) or by the wrapper (20), and in 128-column chunks (160, 256)."""
+    _fused_backward_matches(cuda, T, 3, D, causal, 7 * T + D)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_kernel_with_its_workspace(cuda, causal):
+    """K9 at T = 2048, S = 32, D = 128 (a chunk of the production
+    temporal shape, which the reference's gate sends to its fused
+    kernel): 32 heads' dq accumulators of 1 MiB each in the f32
+    workspace, 32 K blocks a head."""
+    assert fused_bwd_route(2048, 32, 128)
+    assert ca._dqkv_workspace_floats(2048, 32, 128) == 2048 * 128 * 32
+    assert ca._dqkv_workspace_floats(65, 3, 160) == 128 * 128 * 3 * 2
+    _fused_backward_matches(cuda, 2048, 32, 128, causal, 3)
 
 
 def test_flash_backward_kernels_refuse_what_they_cannot_take(cuda):
@@ -499,6 +561,38 @@ def test_temporal_train_step_on_card_matches_cpu(cuda):
                                  window.to(cuda), card_batch)
     assert all(x.device.type == "cuda" and x.dtype == torch.bfloat16
                for x in new.values())
+
+
+def test_chunked_temporal_train_step_on_card_matches_cpu(cuda):
+    """A sequence loss with ``attention_chunk=8`` over 40 streams on the
+    card: 5 calls, each one K6b and one K9 launch, no K7 or K8; the loss
+    within 1e-4 of the CPU's and of the unchunked loss on the card, the
+    gradients within the gradient tolerance of both."""
+    kw = dict(embed_dim=32, hidden_dim=64, supervision="sequence")
+    chunked = TemporalTrafficModel(attention_chunk=8, **kw)
+    params = chunked.init_params(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    window, batch = synthetic_window(np.random.default_rng(2), steps=130,
+                                     groups=5, endpoints=8, per_step=True,
+                                     device="cpu")
+    on_card = {k: x.to(cuda) for k, x in params.items()}
+    card_batch = batch._replace(mask=batch.mask.to(cuda),
+                                target=batch.target.to(cuda))
+    build.reset_launch_counts()
+    loss, grads = value_and_grad(chunked.loss, on_card, window.to(cuda),
+                                 card_batch)
+    counts = build.launch_counts()
+    assert (counts["flash_attention_stats"], counts["flash_bwd_dqkv"],
+            counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) == (5, 5, 0, 0)
+    others = (value_and_grad(chunked.loss, params, window, batch),
+              value_and_grad(TemporalTrafficModel(**kw).loss, on_card,
+                             window.to(cuda), card_batch))
+    for other_loss, other_grads in others:
+        np.testing.assert_allclose(float(loss), float(other_loss),
+                                   rtol=1e-4)
+        for name, g in grads.items():
+            assert parity.grads_close(_host(g), _host(other_grads[name])), \
+                name
 
 
 def _head_inputs(cuda, T, S, D, H, seed):

@@ -9,6 +9,7 @@ fraction recorded.
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from aws_global_accelerator_controller_tpu.ops import diff as jdiff
@@ -20,6 +21,7 @@ from aws_global_accelerator_controller_tpu.ops.weights import (
     plan_weights as jax_plan_weights,
 )
 from aws_global_accelerator_controller_tpu_torch import parity
+from aws_global_accelerator_controller_tpu_torch.device import DeviceError
 from aws_global_accelerator_controller_tpu_torch.ops import diff as tdiff
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_weights import (
     plan_block,
@@ -162,6 +164,15 @@ def test_plan_observed_diff_matches_jax():
 def test_hash_ids_matches_jax():
     ids = [f"arn:aws:elasticloadbalancing:us-east-1:1:lb/net/lb{i}/x"
            for i in range(20)]
-    got = tdiff.hash_ids(ids)
+    got = tdiff.hash_ids(ids, device="cpu")
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), np.asarray(jdiff.hash_ids(ids)))
+
+
+def test_hash_ids_runs_on_the_card_unless_asked(monkeypatch):
+    """Like every entry point of the port, ``hash_ids`` defaults to the
+    card and raises where there is none; the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError):
+        tdiff.hash_ids(["a"])
+    assert tdiff.hash_ids(["a"], device="cpu").device.type == "cpu"

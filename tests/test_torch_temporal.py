@@ -199,8 +199,9 @@ def test_bwd_plain_matches_jax_flash_vjp(T, S, D, fused):
 
 
 def test_flash_autograd_is_the_plain_backward_and_near_dense():
-    """Autograd through ``flash_attention`` runs the plain K6b, K7 and K8
-    on CPU tensors, bit for bit.  Against dense autograd through the
+    """Autograd through ``flash_attention`` runs the plain K6b and, at 6
+    heads, the plain fused backward K9 (the reference's route) on CPU
+    tensors, bit for bit.  Against dense autograd through the
     attention oracle (f32, no rounding of p, ds or o) it agrees within 3
     bf16 ulps of the magnitude: the 2 of the flash rounding plus the
     rounding of o, as for the forward (the model's parameter gradients
@@ -213,7 +214,11 @@ def test_flash_autograd_is_the_plain_backward_and_near_dense():
     assert out.grad_fn is not None
     assert torch.equal(out.detach(), flash_attention(q, k, v))
     got = torch.autograd.grad(out, leaves, do)
-    want, mags = _plain_grads(q, k, v, do, BLOCK_K)
+    _, mags = _plain_grads(q, k, v, do, BLOCK_K)
+    o, m, l = flash_attention_stats_plain(q, k, v)
+    assert cuda_attention.fused_bwd_route(72, 6, 32)
+    want = cuda_attention.flash_bwd_dqkv_plain(
+        q, k, v, do, m, l, cuda_attention.attention_dvec(o, do))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     dense = [x.clone().float().requires_grad_(True) for x in (q, k, v)]
     ref = torch.autograd.grad(attention_reference(*dense, causal=True),

@@ -5,9 +5,10 @@ bit by ``params_from_jax``) and train on the same batches, made with
 numpy from a seed.  The JAX model runs op by op, not under ``jax.jit``
 (XLA's fusion keeps bf16 intermediates in f32 there), with its flash
 kernels in Pallas interpret mode.  The streams number G x E = 5 x 8 = 40,
-more than the 32 heads of the reference's fused backward, so the
-reference differentiates through its two-sweep K7/K8 route, the one the
-port runs.  Tolerances, each stated where it is used:
+more than the 32 heads of the reference's fused backward, so unchunked
+both packages differentiate through the two-sweep K7/K8 route; with
+``attention_chunk`` each call falls under that gate and both take the
+fused one-sweep K9 route.  Tolerances, each stated where it is used:
 
 - the optimizers: bit for bit (the same bf16 or f32 operations in the
   same order);
@@ -66,6 +67,7 @@ from aws_global_accelerator_controller_tpu_torch.models.traffic import (
     TrafficPolicyModel,
     synthetic_batch,
 )
+from aws_global_accelerator_controller_tpu_torch.ops import cuda_attention
 from aws_global_accelerator_controller_tpu_torch.signals import (
     ScopedStopSignal,
 )
@@ -286,11 +288,11 @@ def test_three_step_trajectory_matches_jax(temporal_params, optimizer,
                                    atol=2 * LR * 3, err_msg=k)
 
 
-def _trajectory(model, params, steps=3):
+def _trajectory(model, params, steps=3, seed=9):
     state = model.init_opt_state(params)
     losses = []
     for step in range(steps):
-        w, b = window(model.supervision, (9, step))
+        w, b = window(model.supervision, (seed, step))
         params, state, loss = model.train_step(params, state, w, b)
         losses.append(float(loss))
     return params, losses
@@ -318,15 +320,59 @@ def test_sequence_training_reduces_loss():
     assert float(loss) < first
 
 
-def test_attention_chunk_is_refused_in_training(temporal_params):
-    _, tp = temporal_params
-    model = TemporalTrafficModel(attention_chunk=8, supervision="sequence",
-                                 **SMALL)
+@pytest.mark.parametrize("chunk", [8, 5])
+def test_chunked_grads_match_jax(temporal_params, chunk):
+    """``attention_chunk`` splits the 40 streams into calls of at most
+    ``chunk`` heads (5 calls of 8, or 7 of 5 and one of 5), each under
+    the reference's 32-head gate, so each call's backward is the fused
+    one-sweep K9 here (its plain version, no launch on the CPU) and
+    ``_dqkv_kernel`` in the JAX package: the loss within rtol 1e-4, every
+    gradient within the gradient tolerance."""
+    jp, tp = temporal_params
     w, b = window("sequence", 3)
-    with pytest.raises(ValueError, match="K9"):
-        model.train_step(tp, model.init_opt_state(tp), w, b)
-    # the forward alone still splits the streams
-    assert model.loss(tp, w, b).dim() == 0
+    assert cuda_attention.fused_bwd_route(T, chunk, SMALL["embed_dim"])
+    kw = dict(attention="flash_always", supervision="sequence",
+              attention_chunk=chunk, **SMALL)
+    jloss, jgrads = jax.value_and_grad(JaxTemporal(**kw).loss)(
+        jp, jnp.asarray(w.numpy()), jax_batch(b))
+    build.reset_launch_counts()
+    loss, grads = value_and_grad(TemporalTrafficModel(**kw).loss, tp, w, b)
+    assert not any(build.launch_counts().values())
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
+    for k, g in grads.items():
+        assert g.dtype == torch.bfloat16 and g.shape == tp[k].shape, k
+        assert parity.grads_close(as_f32(g), as_f32(jgrads[k])), k
+
+
+@pytest.mark.parametrize("optimizer,chunk", [("adam", 8),
+                                             ("flat_adam", 5)])
+def test_chunked_three_step_trajectory_matches_jax(temporal_params,
+                                                   optimizer, chunk):
+    """Three chunked training steps (K6b and K9 per chunk, as plain
+    versions) against the JAX package's, on the batches of
+    ``test_three_step_trajectory_matches_jax`` and with its tolerances:
+    losses within rtol 1e-4, params within 2 lr per step.  The port's
+    chunked params equal its unchunked ones (K6b, K7 and K8 over all 40
+    heads) bit for bit: the plain K9 sums as the plain K7 and K8 do."""
+    jp, tp = temporal_params
+    kw = dict(attention="flash_always", supervision="sequence",
+              optimizer=optimizer, learning_rate=LR, **SMALL)
+    whole, _ = _trajectory(TemporalTrafficModel(**kw), tp, seed=7)
+    kw["attention_chunk"] = chunk
+    jmodel, tmodel = JaxTemporal(**kw), TemporalTrafficModel(**kw)
+    jstate, tstate = jmodel.init_opt_state(jp), tmodel.init_opt_state(tp)
+    for step in range(3):
+        w, b = window("sequence", (7, step))
+        jp, jstate, jloss = jmodel.train_step(jp, jstate,
+                                              jnp.asarray(w.numpy()),
+                                              jax_batch(b))
+        tp, tstate, loss = tmodel.train_step(tp, tstate, w, b)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
+    for k, p in tp.items():
+        assert p.dtype == torch.bfloat16
+        np.testing.assert_allclose(as_f32(p), as_f32(jp[k]), rtol=0,
+                                   atol=2 * LR * 3, err_msg=k)
+        assert torch.equal(p, whole[k]), k
 
 
 TRAIN = ["train", "--groups", "3", "--endpoints", "4", "--hidden", "16",
@@ -389,9 +435,33 @@ def test_train_stops_on_a_signal(capsys, monkeypatch):
                    "preempted": True}
 
 
+def test_chunked_train_command_on_cpu(capsys):
+    """``train --attention-chunk 8`` on the CPU: 12 streams in calls of 8
+    and 4, each backward on the fused route (plain versions)."""
+    argv = TRAIN + ["--model", "temporal", "--supervision", "sequence",
+                    "--attention-chunk", "8"]
+    build.reset_launch_counts()
+    assert main(argv) == 0
+    assert not any(build.launch_counts().values())
+    out = json.loads(capsys.readouterr().out)
+    assert (out["step"], out["model"], out["device"]) == (4, "temporal",
+                                                          "cpu")
+    assert np.isfinite(out["loss"]) and out["loss"] > 0
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--attention-chunk", "-1"], "must be >= 0"),
+    (["--model", "mlp", "--attention-chunk", "8"], "temporal family only")])
+def test_train_command_refuses_a_bad_attention_chunk(extra, match):
+    """The reference's guards (``cmd/compute.py:311-317``, ``:331-332``),
+    before any device is touched."""
+    with pytest.raises(SystemExit, match=match):
+        main(TRAIN + ["--model", "temporal", "--supervision", "sequence"]
+             + extra)
+
+
 def test_train_command_refuses_what_the_slice_leaves_out(monkeypatch):
-    for extra in (["--attention-chunk", "32"], ["--ckpt", "x"],
-                  ["--sharded"], ["--model", "moe"]):
+    for extra in (["--ckpt", "x"], ["--sharded"], ["--model", "moe"]):
         with pytest.raises(SystemExit):
             main(TRAIN + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
