@@ -33,6 +33,25 @@ backward K9 in place of K7 and K8 (the reference's route), so at the
 defaults ``--attention-chunk 32`` runs 256 calls each of K6b and K9 a
 step.
 
+``--sharded`` (``train`` and ``plan``, ``--model temporal``) runs the
+sequence-sharded temporal path of ``parallel/plan.py`` over the ranks
+of ``torch.distributed`` (gloo), as many as the launcher starts:
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m aws_global_accelerator_controller_tpu_torch train --sharded ...
+
+The ranks form a data x seq mesh (the seq axis the smaller factor of N:
+4 ranks are data 2 x seq 2), each holding its block of the window's time
+axis and of the groups; ``sequence`` supervision trains through ring
+attention, whose per-block attend is kernel K6b-ring where a rank's
+block reaches ``FLASH_MIN_WINDOW`` (at the train default ``--window 64``
+with seq 2 the ring attends with einsums; ``--window 128`` or more takes
+the kernel).  ``--device cuda`` gives each rank the card of its local
+rank; ``--device cuda:N`` puts every rank on card N.  Rank 0 prints the
+JSON, with the world, the mesh, the ring's ``local`` attend, the backend
+and each rank's kernel launches and host-staged bytes; the other ranks
+print nothing.  Without a launcher the world is one rank.
+
 The params come from the port's own generator (``torch.Generator``
 seeded with ``--seed``) and the telemetry from numpy, so the numbers for
 a seed differ from the JAX package's.  Checkpoints (``--ckpt``) wait for
@@ -44,14 +63,19 @@ import argparse
 import json
 import math
 import sys
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.build import launch_counts
 from ..models.temporal import TemporalTrafficModel, synthetic_window
 from ..models.traffic import TrafficPolicyModel, synthetic_batch
+from ..parallel.distributed import World, join_world, staged_bytes
+from ..parallel.mesh import make_mesh
+from ..parallel.plan import ShardedTemporalPlanner
 from ..signals import ScopedStopSignal
 
 #: offset of the held-out batches' numpy stream from the seed's
@@ -84,11 +108,16 @@ def build_parser() -> argparse.ArgumentParser:
                       help="Seed of the params and the synthetic "
                            "telemetry.")
     plan.add_argument("--device", default="cuda",
-                      help="'cuda' (default) or 'cpu'.")
+                      help="'cuda' (default; each rank on the card of its "
+                           "local rank), 'cuda:N' (every rank on card N) "
+                           "or 'cpu'.")
     plan.add_argument("--serve", choices=("auto", "dense", "fused"),
                       default="auto",
                       help="mlp only. auto: the fused kernel on CUDA, "
                            "dense on the CPU.")
+    plan.add_argument("--sharded", action="store_true",
+                      help="temporal only: plan on a data x seq mesh of "
+                           "the launcher's ranks (see train --sharded).")
 
     ev = sub.add_parser(
         "eval", help="Evaluate fresh params on held-out synthetic fleets "
@@ -166,12 +195,87 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Seed of the params and of the batches' numpy "
                          "streams.")
     tr.add_argument("--device", default="cuda",
-                    help="'cuda' (default) or 'cpu'.")
+                    help="'cuda' (default; each rank on the card of its "
+                         "local rank), 'cuda:N' (every rank on card N) or "
+                         "'cpu'.")
+    tr.add_argument("--sharded", action="store_true",
+                    help="temporal only: train on a data x seq mesh of the "
+                         "ranks that torch.distributed.run starts (python "
+                         "-m torch.distributed.run --standalone "
+                         "--nproc-per-node N -m "
+                         "aws_global_accelerator_controller_tpu_torch train "
+                         "--sharded ...; gloo; without a launcher, one "
+                         "rank): the window's time axis over the seq axis "
+                         "(the smaller factor of N), the groups over the "
+                         "data axis; sequence supervision trains through "
+                         "ring attention, on kernel K6b-ring where a rank's "
+                         "block (--window / seq) is at least 64 steps.")
     return parser
 
 
-def plan(args: argparse.Namespace) -> dict:
-    """The ``plan`` command's result (what it prints)."""
+def _refuse_unported_sharding(args: argparse.Namespace) -> None:
+    if args.sharded and args.model != "temporal":
+        raise SystemExit(
+            f"--sharded --model {args.model} is not yet ported: the port "
+            f"shards the temporal family only")
+
+
+def _temporal_planner(args: argparse.Namespace, model: TemporalTrafficModel,
+                      world: World) -> ShardedTemporalPlanner:
+    """The data x seq mesh over the world's ranks and the planner on it,
+    with the reference's divisibility guard (``compute.py:494-520``)."""
+    mesh = make_mesh(world, axis_names=("data", "seq"))
+    n_seq, n_data = mesh.shape["seq"], mesh.shape["data"]
+    if args.window % n_seq or args.groups % n_data:
+        raise SystemExit(
+            f"--sharded needs --window divisible by the seq axis "
+            f"({n_seq}) and --groups by the data axis ({n_data}); got "
+            f"window={args.window} groups={args.groups}")
+    return ShardedTemporalPlanner(model, mesh, window=args.window)
+
+
+def _sharded_fields(planner: ShardedTemporalPlanner, steps: int = 0
+                    ) -> dict:
+    """What a sharded command adds to its JSON: the world, the mesh, the
+    ring's per-block attend, the backend, and each rank's kernel launches
+    and bytes staged through the host (gathered from every rank)."""
+    mesh, world = planner.mesh, planner.mesh.world
+    mine = {"rank": world.rank, **mesh.coords, "device": str(world.device),
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "staged_bytes": staged_bytes()}
+    if steps:
+        mine["staged_bytes_per_step"] = staged_bytes() / steps
+    return {"world": world.size, "mesh": dict(mesh.shape),
+            "local": planner.local, "backend": world.backend,
+            "ranks": mesh.all.gather_objects(mine)}
+
+
+def _plan_sharded(args: argparse.Namespace) -> Optional[dict]:
+    with join_world(args.device) as world:
+        dev = world.device
+        model = TemporalTrafficModel(hidden_dim=args.hidden)
+        planner = _temporal_planner(args, model, world)
+        params = model.init_params(torch.Generator().manual_seed(args.seed),
+                                   device=dev)
+        window, batch = synthetic_window(
+            np.random.default_rng(args.seed + 1), steps=args.window,
+            groups=args.groups, endpoints=args.endpoints, device="cpu")
+        weights = planner.forward(params, planner.shard_window(window),
+                                  planner.shard_batch(batch).mask)
+        fields = _sharded_fields(planner)
+        if world.rank:
+            return None
+        return {"groups": args.groups, "endpoints": args.endpoints,
+                "device": str(dev), "weights": weights.cpu().tolist(),
+                **fields}
+
+
+def plan(args: argparse.Namespace) -> Optional[dict]:
+    """The ``plan`` command's result (what it prints; None on a rank
+    other than 0 of a sharded run)."""
+    _refuse_unported_sharding(args)
+    if args.sharded:
+        return _plan_sharded(args)
     dev = resolve_device(args.device)
     gen = torch.Generator().manual_seed(args.seed)
     rng = np.random.default_rng(args.seed + 1)
@@ -263,16 +367,35 @@ def evaluate(args: argparse.Namespace) -> dict:
     }
 
 
-def train(args: argparse.Namespace) -> dict:
-    """The ``train`` command's result (what it prints)."""
+def train(args: argparse.Namespace) -> Optional[dict]:
+    """The ``train`` command's result (what it prints; None on a rank
+    other than 0 of a sharded run)."""
     temporal = args.model == "temporal"
+    _refuse_unported_sharding(args)
+    if args.sharded and args.optimizer != "adam":
+        raise SystemExit(
+            "--optimizer flat_adam is the single-chip fast path; "
+            "--sharded training needs the per-leaf adam state")
     if not temporal and args.attention_chunk:
         raise SystemExit(
             "--attention-chunk applies to the temporal family only "
             f"(got --model {args.model})")
+    if args.sharded and args.attention_chunk:
+        raise SystemExit(
+            "--attention-chunk applies to single-chip temporal training "
+            "only; --sharded attends through the ring")
     if args.attention_chunk < 0:
         raise SystemExit("--attention-chunk must be >= 0")
-    dev = resolve_device(args.device)
+    if args.sharded:
+        with join_world(args.device) as world:
+            return _train(args, world)
+    return _train(args, None)
+
+
+def _train(args: argparse.Namespace, world: Optional[World]
+           ) -> Optional[dict]:
+    temporal = args.model == "temporal"
+    dev = world.device if world else resolve_device(args.device)
     if temporal:
         model = TemporalTrafficModel(
             hidden_dim=args.hidden, learning_rate=args.lr,
@@ -282,24 +405,36 @@ def train(args: argparse.Namespace) -> dict:
         model = TrafficPolicyModel(hidden_dim=args.hidden,
                                    learning_rate=args.lr,
                                    optimizer=args.optimizer)
+    planner = _temporal_planner(args, model, world) if world else None
+    lead = world is None or world.rank == 0
 
     def fresh():
         params = model.init_params(torch.Generator().manual_seed(args.seed),
                                    device=dev)
         return params, model.init_opt_state(params)
 
-    def data(rng):
+    def data(rng, on=dev):
         """The loss's data arguments: (window, batch) or (batch,)."""
         if temporal:
             return synthetic_window(
                 rng, steps=args.window, groups=args.groups,
                 endpoints=args.endpoints,
-                per_step=args.supervision == "sequence", device=dev)
+                per_step=args.supervision == "sequence", device=on)
         return (synthetic_batch(rng, groups=args.groups,
-                                endpoints=args.endpoints, device=dev),)
+                                endpoints=args.endpoints, device=on),)
+
+    if planner is None:
+        step_fn, step_data = model.train_step, data
+    else:
+        # every rank makes the one global window and keeps its share
+        def step_data(rng):
+            window, batch = data(rng, "cpu")
+            return planner.shard_window(window), planner.shard_batch(batch)
+        step_fn = planner.train_step
 
     def log(msg):
-        print(msg, file=sys.stderr, flush=True)
+        if lead:
+            print(msg, file=sys.stderr, flush=True)
 
     params, opt_state = fresh()
     eval_data = (data(np.random.default_rng((args.seed, EVAL_STREAM, 0)))
@@ -307,15 +442,24 @@ def train(args: argparse.Namespace) -> dict:
     restores = step = 0
     loss = None          # the last applied step's loss, never non-finite
     preempted = False
+    step_s = []          # wall seconds of each step (sharded runs)
     with ScopedStopSignal() as stop:
         for batch_idx in range(args.steps):
-            if stop.is_set():
+            stopping = stop.is_set()
+            if planner is not None:
+                # every rank leaves together, or a collective would hang
+                stopping = planner.mesh.all.any(stopping)
+            if stopping:
                 preempted = True
                 log(f"stop signal: exiting at step {step}")
                 break
+            t0 = time.perf_counter()
             rng = np.random.default_rng((args.seed, TRAIN_STREAM, batch_idx))
-            new_params, new_opt, new_loss = model.train_step(
-                params, opt_state, *data(rng))
+            new_params, new_opt, new_loss = step_fn(
+                params, opt_state, *step_data(rng))
+            if planner is not None:
+                float(new_loss)            # the step's work is done
+                step_s.append(time.perf_counter() - t0)
             if args.guard and not math.isfinite(float(new_loss)):
                 restores += 1
                 log(f"non-finite loss on batch {batch_idx + 1} (restore "
@@ -335,9 +479,16 @@ def train(args: argparse.Namespace) -> dict:
                 log(f"step {step} eval_loss {held_out:.5f}")
             if (batch_idx + 1) % max(1, args.steps // 10) == 0:
                 log(f"step {step} loss {float(loss):.5f}")
-    return {"step": step, "model": args.model,
-            "loss": float(loss) if loss is not None else None,
-            "device": str(dev), **({"preempted": True} if preempted else {})}
+    out = {"step": step, "model": args.model,
+           "loss": float(loss) if loss is not None else None,
+           "device": str(dev), **({"preempted": True} if preempted else {})}
+    if planner is not None:
+        out.update(_sharded_fields(planner, len(step_s)))
+        # the first step pays for the kernels' library load and warm-up
+        timed = step_s[1:] or step_s
+        out["ms_per_step"] = (1e3 * sum(timed) / len(timed)
+                              if timed else None)
+    return out if lead else None
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -351,6 +502,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         out = train(args)
     else:
         out = evaluate(args)
-    json.dump(out, sys.stdout)
-    print()
+    if out is not None:
+        json.dump(out, sys.stdout)
+        print()
     return 0

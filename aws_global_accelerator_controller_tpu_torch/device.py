@@ -75,8 +75,8 @@ def _probe(dev: torch.device) -> None:
 
 def resolve_device(device: Device = "cuda") -> torch.device:
     """The torch device to run on.  ``"cpu"`` is taken as asked; a CUDA
-    device must exist and pass the probe kernel (run once per device
-    and process)."""
+    device (``"cuda"``, the current one, or ``"cuda:N"``) must exist and
+    pass the probe kernel (run once per device and process)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return dev
@@ -89,6 +89,10 @@ def resolve_device(device: Device = "cuda") -> torch.device:
             "default; pass device='cpu' to run on the CPU")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.index >= torch.cuda.device_count():
+        raise DeviceError(
+            f"{device!r} does not exist: {torch.cuda.device_count()} CUDA "
+            f"device(s) are visible")
     with _lock:
         if dev.index not in _probed:
             _probe(dev)

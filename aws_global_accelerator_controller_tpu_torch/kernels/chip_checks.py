@@ -38,11 +38,34 @@ beforehand: wall ms a step, the device's busy ms a step (the sum of
 every kernel's device time) and the ops that take the most host and
 device time.
 
+``ring``, run by ``torch.distributed.run``: every rank of a 1-D seq ring
+(gloo, host-staged) on ``--device`` attends its block of a causal
+[T, H, D] bf16 q, k, v (made from ``--seed`` alike on every rank)
+through ``make_ring_attention(local="flash")``, kernel K6b-ring, and
+takes the gradients of sum(o * w); rank 0 gathers the blocks and holds
+o against the dense ``attention_reference`` on the gathered inputs
+(2 bf16 ulps of the magnitude) and against the ring with the einsum
+local, and dq, dk, dv against dense autograd in f32 within 4 bf16 ulps
+of each head's largest gradient (the ring, as the reference's, rounds o
+and the cotangent to bf16 and takes dvec from them, which moves a
+gradient by about an ulp of the largest terms it sums); rank s must
+launch K6b-ring s + 1 times.  It prints one JSON object and exits
+non-zero if a check fails.
+
+``gloo``, run by ``torch.distributed.run`` on 2 ranks: whether gloo
+takes CUDA tensors as they are (``all_reduce``, ``all_gather`` and a
+``batch_isend_irecv`` hop), which decides whether the sharded path must
+stage them through the host; each op's verdict (right, wrong, or
+gloo's error) is printed by rank 0 as it comes.  A refused hop leaves
+gloo's connection closed, and the run then ends non-zero.
+
 Run from the root of a checkout, on a machine with one card::
 
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ab build/parent .
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks faults [NAME ...]
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks profile [--window T --chunks 0 32 ...]
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ring --device cuda:0
+    python3 -m torch.distributed.run --standalone --nproc-per-node 2 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks gloo --device cuda:0
 
 Each prints one JSON object a run (a train step setting), and ``faults``
 exits non-zero if a fault went unnoticed.
@@ -299,6 +322,155 @@ def profile(steps: int = 3, top: int = 12, window: int = 64,
     return 0
 
 
+def ring(device: str = "cuda", T: int = 512, H: int = 256, D: int = 32,
+         seed: int = 0) -> int:
+    import time
+
+    import numpy as np
+    import torch
+
+    from .. import parity
+    from ..parallel.distributed import join_world, staged_bytes
+    from ..parallel.mesh import make_mesh
+    from ..parallel.ring_attention import (
+        attention_reference,
+        make_ring_attention,
+    )
+    from .build import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 is f32
+    with join_world(device) as world:
+        mesh = make_mesh(world, ("seq",))
+        n, s = mesh.shape["seq"], mesh.coords["seq"]
+        g = torch.Generator().manual_seed(seed)
+        q, k, v = (torch.randn(T, H, D, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        w = torch.randn(T, H, D, generator=g)
+        b = T // n
+        rows = slice(s * b, (s + 1) * b)
+        leaves = [x[rows].contiguous().to(world.device).requires_grad_(True)
+                  for x in (q, k, v)]
+        def sync():
+            if world.device.type == "cuda":
+                torch.cuda.synchronize(world.device)
+
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        o = make_ring_attention(mesh, causal=True, local="flash")(*leaves)
+        (o.float() * w[rows].to(world.device)).sum().backward()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()["flash_attention_stats_ring"]
+        with torch.no_grad():
+            o_einsum = make_ring_attention(mesh, causal=True,
+                                           local="einsum")(*leaves)
+        mine = [x.detach().cpu() for x in
+                (o, *(t.grad for t in leaves), o_einsum)]
+        blocks = mesh.all.gather_objects((s, launches, mine))
+        if world.rank:
+            return 0
+        full = [torch.cat([blk[2][i] for blk in sorted(
+            blocks, key=lambda blk: blk[0])]).float().numpy()
+            for i in range(5)]
+        dense = [x.float().to(world.device).requires_grad_(True)
+                 for x in (q, k, v)]
+        want = attention_reference(*dense, causal=True)
+        (want * w.to(world.device)).sum().backward()
+        mag = attention_reference(*(x.to(world.device) for x in (q, k)),
+                                  v.abs().to(world.device),
+                                  causal=True).cpu().numpy()
+        want_o = want.detach().cpu().numpy()
+
+        def ulps(got, ref):
+            return float((np.abs(got - ref) / parity.bf16_ulp(
+                np.maximum(np.abs(ref), mag))).max())
+
+        grad_err = {}
+        for name, got, leaf in zip(("dq", "dk", "dv"), full[1:4], dense):
+            ref = leaf.grad.cpu().numpy()
+            head_max = np.abs(ref).max(axis=(0, 2), keepdims=True)
+            grad_err[name] = float((np.abs(got - ref)
+                                    / parity.bf16_ulp(head_max)).max())
+        out = {"phase": "ring_attention", "world": n, "T": T, "H": H,
+               "D": D, "device": str(world.device),
+               "ms_fwd_bwd_rank0": ms,
+               "staged_bytes_rank0": staged_bytes(),
+               "launches_by_seq_rank": {blk[0]: blk[1] for blk in blocks},
+               "o_ulps_of_magnitude_vs_dense": ulps(full[0], want_o),
+               "o_ulps_of_magnitude_vs_einsum_local": ulps(full[0],
+                                                           full[4]),
+               "grad_ulps_of_head_max_vs_dense": grad_err}
+        print(json.dumps(out), flush=True)
+        # on CPU ranks the wrapper runs the plain version: no launch
+        on_card = world.device.type == "cuda"
+        bad = [f"rank {r} launched K6b-ring {c} times, not {r + 1}"
+               for r, c in out["launches_by_seq_rank"].items()
+               if c != (r + 1 if on_card else 0)]
+        bad += [f"o {key}: {u} ulps of the magnitude (allowed "
+                f"{parity.MAX_SCORE_ULPS})" for key, u in out.items()
+                if key.startswith("o_ulps") and not u <= parity.MAX_SCORE_ULPS]
+        bad += [f"{name}: {e} ulps of its head's largest gradient "
+                f"(allowed 4)" for name, e in grad_err.items()
+                if not e <= 4]
+        if bad:
+            print("ring: " + "; ".join(bad), file=sys.stderr)
+            return 1
+        return 0
+
+
+def gloo(device: str = "cuda") -> int:
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.distributed import join_world
+
+    with join_world(device) as world:
+        r, n = world.rank, world.size
+
+        def verdict(name, op, want):
+            # gloo's refusal is the finding here, not a failure
+            try:
+                got = op()
+                if world.device.type == "cuda":
+                    torch.cuda.synchronize(world.device)
+                said = "right" if torch.equal(got.cpu(), want) else "wrong"
+            except Exception as e:          # noqa: BLE001
+                said = f"refused: {type(e).__name__}: {str(e)[:300]}"
+            if r == 0:
+                print(json.dumps({"op": name, "device": str(world.device),
+                                  "verdict": said}), flush=True)
+            dist.barrier()
+
+        x = torch.full((4,), float(r + 1), device=world.device)
+
+        def all_reduce():
+            y = x.clone()
+            dist.all_reduce(y)
+            return y
+
+        def all_gather():
+            got = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(got, x)
+            return torch.stack(got)
+
+        def hop():
+            got = torch.empty_like(x)
+            ops = [dist.P2POp(dist.isend, x, (r + 1) % n),
+                   dist.P2POp(dist.irecv, got, (r - 1) % n)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+            return got
+
+        verdict("all_reduce", all_reduce,
+                torch.full((4,), float(n * (n + 1) // 2)))
+        verdict("all_gather", all_gather, torch.stack(
+            [torch.full((4,), float(i + 1)) for i in range(n)]))
+        verdict("batch_isend_irecv", hop,
+                torch.full((4,), float((r - 1) % n + 1)))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -320,7 +492,19 @@ def main(argv=None) -> int:
                         metavar="HEADS",
                         help="attention_chunk settings to profile (0: "
                              "unchunked)")
+    p_ring = sub.add_parser("ring", help="a ring of ranks on the card, "
+                                         "under torch.distributed.run")
+    p_ring.add_argument("--device", default="cuda")
+    for flag, default in (("T", 512), ("H", 256), ("D", 32), ("seed", 0)):
+        p_ring.add_argument(f"--{flag}", type=int, default=default)
+    p_gloo = sub.add_parser("gloo", help="does gloo take CUDA tensors, "
+                                         "under torch.distributed.run")
+    p_gloo.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.cmd == "gloo":
+        return gloo(args.device)
+    if args.cmd == "ring":
+        return ring(args.device, args.T, args.H, args.D, args.seed)
     if args.cmd == "profile":
         return profile(args.steps, window=args.window, groups=args.groups,
                        endpoints=args.endpoints, embed=args.embed,

@@ -33,7 +33,7 @@ reference's division).  The same code runs on the card.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,11 +52,21 @@ def masked_ce_loss(scores: torch.Tensor, mask: torch.Tensor,
     them); leading dims are batch dims with one loss each, so [G, E]
     inputs give a scalar and [T, G, E] inputs the per-step losses [T].
     """
+    total, valid = masked_ce_sum(scores, mask, target)
+    return total / valid.clamp_min(1)
+
+
+def masked_ce_sum(scores: torch.Tensor, mask: torch.Tensor,
+                  target: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the cross-entropy summed over groups with >= 1 valid endpoint,
+    the count of those groups), each [...]: the two halves of
+    :func:`masked_ce_loss`, for a caller that holds some of the groups
+    and divides by the count over all of them (the sharded planner)."""
     p = masked_softmax(scores, mask)
     ce = -torch.where(mask, target * torch.log(p + 1e-9), 0.0).sum(dim=-1)
     valid = mask.any(dim=-1).expand_as(ce)
-    return (torch.where(valid, ce, 0.0).sum(dim=-1)
-            / valid.sum(dim=-1).clamp_min(1))
+    return torch.where(valid, ce, 0.0).sum(dim=-1), valid.sum(dim=-1)
 
 
 class Optimizer(NamedTuple):
@@ -238,10 +248,14 @@ class TrainableModel:
         return self.optimizer.init(params)
 
     def train_step_with(self, loss_fn: Callable, params: Params, opt_state,
-                        *data):
+                        *data, reduce: Optional[Callable] = None):
         """(new params, new optimizer state, loss at ``params``): the one
-        optimizer-update implementation every family shares."""
+        optimizer-update implementation every family shares.  ``reduce``
+        maps (loss, grads) to what the update takes: the sharded
+        planner's sum of every rank's share."""
         loss, grads = value_and_grad(loss_fn, params, *data)
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         updates, opt_state = self.optimizer.update(grads, opt_state, params)
         return apply_updates(params, updates), opt_state, loss
 

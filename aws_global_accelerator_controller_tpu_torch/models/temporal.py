@@ -22,13 +22,15 @@ attention heads: q = k = v = [T, S, D].
   K11 in the backward (``_use_fused_head``).
 
 Matmuls take bf16 operands with f32 sums and round to bf16, as XLA's
-bf16 dots do, and differentiate as those dots do.  The sharded planner
-and ring attention wait for later slices.
+bf16 dots do, and differentiate as those dots do.  ``scores``,
+``scores_seq``, ``scores_last`` and ``loss`` take the reference's seams
+(``attend``, ``attend_last``), through which
+``parallel.plan.ShardedTemporalPlanner`` runs the ring.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +46,11 @@ from .common import TrainableModel, make_optimizer, masked_ce_loss
 from .traffic import Batch
 
 Params = Dict[str, torch.Tensor]
+#: fn(q, k, v [T, S, D]) -> [T, S, D]
+Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+#: fn(q_last [S, D], k, v [T, S, D]) -> [S, D]
+AttendLast = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                      torch.Tensor]
 
 #: windows this long or longer take the flash kernel (the JAX package's
 #: TPU crossover, ``temporal.py:38``; not yet re-derived on the H100)
@@ -183,32 +190,45 @@ class TemporalTrafficModel(TrainableModel):
         return head(rep, params["w1"], params["b1"], params["w2"],
                     params["b2"])
 
-    def scores(self, params: Params, window: torch.Tensor) -> torch.Tensor:
+    def scores(self, params: Params, window: torch.Tensor,
+               attend: Optional[Attend] = None) -> torch.Tensor:
         """[T, G, E, F] -> [G, E] float32 scores via the full causal
-        attention (its last row through the head)."""
+        attention (its last row through the head).  ``attend`` replaces
+        the attention with fn(q, k, v [T, S, D]) -> [T, S, D]."""
         t, g, e, f = window.shape
         q, k, v = self._embed_qkv(params, window)
-        return self._head(params, self._attend(q, k, v)[-1]).reshape(g, e)
+        attended = (attend or self._attend)(q, k, v)
+        return self._head(params, attended[-1]).reshape(g, e)
 
-    def scores_last(self, params: Params, window: torch.Tensor
+    def scores_last(self, params: Params, window: torch.Tensor,
+                    attend_last: Optional[AttendLast] = None,
+                    last_step: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
         """[T, G, E, F] -> [G, E] scores in O(T): only the final query row
-        is formed (causality is vacuous for it)."""
+        is formed (causality is vacuous for it).  ``attend_last`` replaces
+        the last-row attention with fn(q_last [S, D], k, v [T, S, D]) ->
+        [S, D] (the sharded planner's seam); ``last_step`` [G, E, F] gives
+        the query step's telemetry in place of ``window[-1]``, where
+        ``window`` is one rank's block of the time axis that does not hold
+        it."""
         t, g, e, f = window.shape
         k, v = self._embed_kv(params, window)
-        x_last = window[-1].to(torch.bfloat16).reshape(g * e, f)
+        x = window[-1] if last_step is None else last_step
+        x_last = x.to(torch.bfloat16).reshape(g * e, f)
         q_last = bf16_matmul(x_last, bf16_matmul(params["embed"],
                                                  params["wq"]))
-        rep = attention_last_reference(q_last, k, v)    # [S, D]
+        rep = (attend_last or attention_last_reference)(q_last, k, v)
         return self._head(params, rep).reshape(g, e)
 
-    def scores_seq(self, params: Params, window: torch.Tensor
-                   ) -> torch.Tensor:
+    def scores_seq(self, params: Params, window: torch.Tensor,
+                   attend: Optional[Attend] = None) -> torch.Tensor:
         """[T, G, E, F] -> [T, G, E] per-step scores: every step's causal
-        attended representation through the head."""
+        attended representation through the head.  ``attend`` replaces
+        the attention with fn(q, k, v [T, S, D]) -> [T, S, D] (the sharded
+        planner's ring)."""
         t, g, e, f = window.shape
         q, k, v = self._embed_qkv(params, window)
-        attended = self._attend(q, k, v)
+        attended = (attend or self._attend)(q, k, v)
         if (self.remat and torch.is_grad_enabled()
                 and not self._use_fused_head(attended)):
             # the [T, S, H] hidden is recomputed in the backward instead
@@ -226,13 +246,17 @@ class TemporalTrafficModel(TrainableModel):
         return plan_weights(self.scores_last(params, window), mask)
 
     def loss(self, params: Params, window: torch.Tensor,
-             batch: Batch) -> torch.Tensor:
-        """``last``: masked CE on the final step's scores (O(T) path).
-        ``sequence``: masked CE per step against ``batch.target``
-        [T, G, E], averaged over steps."""
+             batch: Batch, attend: Optional[Attend] = None) -> torch.Tensor:
+        """``last``: masked CE on the final step's scores (O(T) path; the
+        full attention ``attend`` when one is given).  ``sequence``:
+        masked CE per step against ``batch.target`` [T, G, E], averaged
+        over steps (``attend`` replacing the attention)."""
         if self.supervision == "sequence":
-            seq = self.scores_seq(params, window)      # [T, G, E]
+            seq = self.scores_seq(params, window, attend)   # [T, G, E]
             return masked_ce_loss(seq, batch.mask, batch.target).mean()
+        if attend is not None:
+            return masked_ce_loss(self.scores(params, window, attend),
+                                  batch.mask, batch.target)
         return masked_ce_loss(self.scores_last(params, window), batch.mask,
                               batch.target)
 

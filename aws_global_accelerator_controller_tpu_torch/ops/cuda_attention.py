@@ -24,6 +24,12 @@ endpoint streams).  Like the reference's ``jax.custom_vjp`` (``:1038-
   ``:455``) and K8 (:func:`flash_bwd_dkv`, ``_dkv_kernel`` ``:707``) in
   ``csrc/flash_attention_bwd.cu``.
 
+:func:`flash_attention_stats_ring` is the counterpart of the reference's
+public ``flash_attention_stats`` (``:1081``, ``_stats_kernel`` with
+``normalize=False``): kernel K6b-ring (``csrc/flash_attention_ring.cu``),
+one block pair of ring attention on head-major [H, T, D] blocks, f32 q
+against bf16 k and v, returning an unnormalised f32 o with f32 m and l.
+
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs its plain version at the kernels' block, :data:`BLOCK_K`.
 The kernels take every head width D: a width that is not a multiple of
@@ -82,6 +88,9 @@ _FLASH_DQ = Kernel("flash_bwd_dq", "agac_flash_bwd_dq", [_P] * 8 + _SIZES)
 _FLASH_DKV = Kernel("flash_bwd_dkv", "agac_flash_bwd_dkv", [_P] * 9 + _SIZES)
 _FLASH_DQKV = Kernel("flash_bwd_dqkv", "agac_flash_bwd_dqkv",
                      [_P] * 11 + _SIZES)
+#: Tq, Tk, H, D, scale, causal
+_FLASH_RING = Kernel("flash_attention_stats_ring", "agac_flash_attention_ring",
+                     [_P] * 6 + [_I, _I, _I, _I, ctypes.c_float, _I])
 
 # The reference's route for the backward (``ops/pallas_attention.py``),
 # copied: its block rule (``_auto_block`` ``:116``, ``_resolve_blocks``
@@ -202,6 +211,40 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
         m = m_new
     o = (acc / l.clamp_min(1.0)).to(q.dtype).transpose(0, 1)
     return o, m[..., 0], l[..., 0]
+
+
+def flash_attention_stats_ring_plain(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, causal: bool = False,
+                                     block_k: int = BLOCK_K
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The plain version of kernel K6b-ring: q [H, Tq, D], k, v [H, Tk, D]
+    -> (o [H, Tq, D] f32 unnormalised, m [H, Tq] f32, l [H, Tq] f32), the
+    online softmax folded over K blocks of ``block_k`` keys.
+
+    q is taken in f32 and scaled by D**-0.5 in f32, never rounded to
+    bf16; s = q'.k^T is an f32 product (full precision, with TF32 off);
+    ``causal`` masks key index > query index (the ring's diagonal block);
+    p is rounded to v's dtype before p.v; o is not divided by l.  A K
+    block wholly masked for a row leaves its (m, l, acc) bit for bit
+    unchanged, as in :func:`flash_attention_stats_plain`."""
+    H, Tq, D = q.shape
+    qh = q.float() * D ** -0.5
+    m = torch.full((H, Tq, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((H, Tq, 1), device=q.device)
+    acc = torch.zeros((H, Tq, D), device=q.device)
+    q_pos = torch.arange(Tq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    for j0 in range(0, k.shape[1], block_k):
+        keys = slice(j0, j0 + block_k)
+        s = _scores(qh, k[:, keys].float(), q_pos, k_pos[keys], causal)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ v[:, keys].float()
+        m = m_new
+    return acc, m[..., 0], l[..., 0]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -434,6 +477,48 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _FLASH_STATS(dev, q, k, v, out, m, l, T, H, Dp, D ** -0.5,
                      int(causal))
     return _unpad(out, D), m, l
+
+
+def flash_attention_stats_ring(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, causal: bool = False
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(o [H, Tq, D] f32 unnormalised, m [H, Tq] f32, l [H, Tq] f32) of f32
+    q [H, Tq, D] against bf16 k, v [H, Tk, D]: kernel K6b-ring on CUDA
+    tensors (contiguous, 16-byte aligned, any D, Tq and Tk),
+    :func:`flash_attention_stats_ring_plain` at :data:`BLOCK_K` on CPU
+    tensors."""
+    name = "flash_attention_stats_ring"
+    if _on_cpu(q, k, v):
+        return flash_attention_stats_ring_plain(q, k, v, causal, BLOCK_K)
+    dev = require_cuda(name, q, k, v)
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or (
+            q.shape[0], q.shape[2]) != (k.shape[0], k.shape[2]):
+        raise ValueError(f"{name}: q must be [H, Tq, D] and k, v one "
+                         f"[H, Tk, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype != torch.float32 or k.dtype != torch.bfloat16 \
+            or v.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes float32 q and bfloat16 "
+                         f"k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise ValueError(f"{name}: the kernel takes contiguous q, k, v")
+    H, Tq, D = q.shape
+    q, k, v = _pad_width(q, k, v)
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"{name}: the kernel reads q, k, v in 16-byte "
+                         f"vectors; their storage must be 16-byte aligned")
+    if -(-Tq // BLOCK_K) > 65535:
+        raise ValueError(f"{name}: Tq={Tq} exceeds the kernel's grid "
+                         f"({65535 * BLOCK_K} rows)")
+    Dp = q.shape[-1]
+    o = torch.empty((H, Tq, Dp), dtype=torch.float32, device=dev)
+    m = torch.empty((H, Tq), dtype=torch.float32, device=dev)
+    l = torch.empty((H, Tq), dtype=torch.float32, device=dev)
+    if H and Tq:
+        _FLASH_RING(dev, q, k, v, o, m, l, Tq, k.shape[1], H, Dp, D ** -0.5,
+                    int(causal))
+    return _unpad(o, D), m, l
 
 
 def flash_bwd_dq(q, k, v, do, m, l, dvec, causal: bool = True

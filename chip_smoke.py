@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's weight-planning, temporal and training paths
-on one NVIDIA GPU.
+"""Drive the PyTorch port's weight-planning, temporal, training and
+sequence-sharded paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -60,21 +60,43 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
     against 3 on the CPU (``head="fused_always"``, the kernels' plain
     versions), and one batch's loss and gradients against the dense head
     on the card; and times 10 steps of the dense-head model beside it;
-13. holds every kernel against its plain PyTorch version on the card, at
+13. runs ``train --model temporal --supervision sequence --sharded
+    --window 256`` under ``torch.distributed.run`` on 4 ranks on the one
+    card (``--device cuda:0``; data 2 x seq 2, gloo, every hop staged
+    through the host): 128-step blocks of 4096 streams a rank, so the
+    ring attends through K6b-ring, which rank (d, s) launches s + 1
+    times a step, and no other flash kernel; its per-step losses held
+    to the unsharded command's on the card (rtol 2e-3, atol 2e-4, the
+    reference's), and the same command with 16 groups on the card held
+    to its 4 CPU ranks (``TRAIN_LOSS_RTOL``);
+14. runs the same command with no launcher at ``--window 64``: a world
+    of one rank, one K6b-ring launch a step, its loss held to phase 7's
+    3-step loss;
+15. runs ``plan --model temporal --sharded`` on 4 ranks on the card
+    against the unsharded command, by the reference's sharded-plan law
+    (no cell off by more than 1, at least 90% equal);
+16. runs a 1-D ring of 4 ranks on the card
+    (``kernels/chip_checks.py ring``): ``make_ring_attention(local=
+    "flash", causal=True)`` and its gradients against the dense
+    ``attention_reference`` on the gathered inputs;
+17. holds every kernel against its plain PyTorch version on the card, at
     the shapes the paths give it and at widths past one tile (K3 at
     H = 256, the flash kernels at D = 160), and times both (and, where
     one exists, a PyTorch call computing the same function; for K9 also
-    K7 + K8 on its inputs); then times the flash kernel against the
-    dense reference attention at short windows (the
-    ``FLASH_MIN_WINDOW`` crossover).
+    K7 + K8 on its inputs; for K6b-ring also at Tq != Tk, the zigzag
+    ring's half blocks); then times the flash kernel against the dense
+    reference attention at short windows (the ``FLASH_MIN_WINDOW``
+    crossover).
 
-Before each of phases 1-12 every launch count is set to 0; after each
+Before each of phases 1-16 every launch count is set to 0; after each
 the script fails unless every kernel that phase runs was launched (and,
 for the flash and head kernels, launched exactly as often as the path
 calls them: K9 only in phases 9 and 10, the head kernels only in phase
-12).  Phase 3 reads its counts after the last churn wave, demands
-that the churn waves alone launched each of their kernels, and reports
-the full repack's launches apart.
+12, K6b-ring only in phases 13, 14 and 16).  Phase 3 reads its counts
+after the last churn wave, demands that the churn waves alone launched
+each of their kernels, and reports the full repack's launches apart.
+Phases 13, 15 and 16 run their ranks as processes of their own, each
+starting from no launches, and count the launches of every rank.
 
 Output: the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -87,6 +109,8 @@ import contextlib
 import io
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -147,6 +171,20 @@ K10, K11 = "score_head_fwd", "score_head_bwd"
 #: widths past one tile of the kernels: K3's hidden layer, the flash
 #: kernels' heads
 WIDE_HIDDEN, WIDE_HEAD = 256, 160
+#: the ring flavour of the flash forward with stats
+K6B_RING = "flash_attention_stats_ring"
+#: the sharded phases: ranks on the one card (data 2 x seq 2), the
+#: window whose 128-step blocks take the flash local, steps a run
+SHARDED_RANKS, SHARDED_WINDOW, SHARDED_STEPS = 4, 256, 3
+#: the reference's tolerance of a sharded loss trajectory against the
+#: unsharded one (tests/test_sharded_temporal.py:79-81)
+SHARDED_LOSS_RTOL, SHARDED_LOSS_ATOL = 2e-3, 2e-4
+#: groups of the sharded card-vs-CPU comparison, cut from 256 so that the
+#: four CPU ranks finish in seconds (the same argv on both sides)
+SHARDED_CPU_GROUPS = 16
+#: the reference's law for a sharded plan (tests/test_sharded_temporal
+#: .py:54-61): no cell off by more than 1, at least this share equal
+SHARDED_PLAN_EQUAL = 0.9
 
 
 class SmokeError(RuntimeError):
@@ -813,6 +851,107 @@ def _k9():
                                 iters=3, eager_iters=5))
 
 
+def _k6b_ring_one(H, Tq, Tk, D, causal, seed, iters=20, eager_iters=50):
+    """K6b-ring at one shape: f32 q, bf16 k and v head-major, against its
+    plain version at the kernel's block on the same inputs (TF32 off, so
+    the plain q'.k^T is a true f32 product): o, unnormalised, within 2
+    bf16 ulps of the magnitude it sums (the plain version on |v|,
+    ``parity.attention_close``; p rounded the other way moves o by one
+    ulp of that), l within 1e-5 relative (f32 sums of the same p), m
+    within D f32 ulps of the largest |q'| . |k| (the f32 product of f32
+    q' and bf16 k in another order).  Timed beside its plain version and
+    SDPA's flash forward with its logsumexp
+    (``aten._scaled_dot_product_flash_attention``) on bf16 q, k, v, where
+    it takes the width (the kernel's q is f32, SDPA's bf16)."""
+    import numpy as np
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch.ops import (
+        cuda_attention as ca,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(H, Tq, D, device="cuda", generator=g)
+    k, v = (torch.randn(H, Tk, D, device="cuda", generator=g)
+            .to(torch.bfloat16) for _ in range(2))
+    shape = f"H={H} Tq={Tq} Tk={Tk} D={D} causal={causal}"
+    blk = ca.BLOCK_K
+    o, m, l = ca.flash_attention_stats_ring(q, k, v, causal)
+    po, pm, pl = ca.flash_attention_stats_ring_plain(q, k, v, causal, blk)
+    mag = ca.flash_attention_stats_ring_plain(q, k, v.abs(), causal, blk)[0]
+    torch.cuda.synchronize()
+    err, frac, ulps = _check_close(f"{K6B_RING} {shape}", o, po, mag)
+    l_err = float(((l - pl).abs() / pl.abs().clamp_min(1e-30)).max())
+    check(bool(torch.isfinite(m).all() and torch.isfinite(l).all())
+          and l_err <= 1e-5, f"{K6B_RING} {shape}: l off by {l_err} "
+          f"relative (allowed 1e-5)")
+    s_mag = float(((q.abs() * D ** -0.5) @ k.float().abs().transpose(1, 2))
+                  .max())
+    m_err = float((m - pm).abs().max())
+    m_tol = D * 2.0 ** -24 * s_mag
+    check(m_err <= m_tol, f"{K6B_RING} {shape}: m off by {m_err} (allowed "
+          f"{m_tol})")
+    again = ca.flash_attention_stats_ring(q, k, v, causal)
+    check(all(torch.equal(a, b) for a, b in zip(again, (o, m, l))),
+          f"{K6B_RING} {shape}: two runs differ")
+    del po, pm, pl, mag, again
+    qb = q.to(torch.bfloat16).unsqueeze(0)
+    kh, vh = k.unsqueeze(0), v.unsqueeze(0)
+    library = None
+    if D % 8 == 0 and D <= 256:
+        def library():
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                qb, kh, vh, 0.0, causal)
+    # live (query, key) pairs: the causal mask is relative (key <= query)
+    pairs = H * (sum(min(i + 1, Tk) for i in range(Tq)) if causal
+                 else Tq * Tk)
+    # q and o f32, k and v bf16, m and l f32.  The exact f32 q'.k^T is
+    # three bf16 tensor-core products (q' split into hi, mid, lo), p.v one
+    # more, all at the bf16 rate: the least the card needs for this work.
+    # The same q'.k^T as f32 FMA on the CUDA cores is kept beside it.
+    nbytes = 8 * H * Tq * D + 4 * H * Tk * D + 8 * H * Tq
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 + 1) * 2.0 * D * pairs / BF16_FLOP_PER_S * 1e3
+    t_f32_fma = (2.0 * D * pairs / F32_FLOP_PER_S
+                 + 2.0 * D * pairs / BF16_FLOP_PER_S) * 1e3
+    rec = _record(
+        K6B_RING, f"{SRC}/flash_attention_ring.cu",
+        f"{REF}/ops/pallas_attention.py:301", shape, err, frac,
+        {**timings(lambda: ca.flash_attention_stats_ring(q, k, v, causal),
+                   lambda: ca.flash_attention_stats_ring_plain(
+                       q, k, v, causal, blk),
+                   library, iters=iters, eager_iters=eager_iters),
+         "library_note": "SDPA flash forward with logsumexp "
+                         "(aten._scaled_dot_product_flash_attention) on "
+                         "bf16 q, k, v: the kernel's q is f32"},
+        (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    rec["f32_fma_scores_bound_ms"] = max(t_bytes, t_f32_fma)
+    rec["max_ulps_of_magnitude"] = ulps
+    rec["l_max_rel_err"] = l_err
+    rec["m_max_abs_err"] = m_err
+    rec["m_tolerance"] = m_tol
+    return rec
+
+
+def _k6b_ring():
+    """K6b-ring at the ring block of ``temporal_sharded_train`` (4096
+    streams of a 128-step block, D = 32; the diagonal block, causal, is
+    the main row, the earlier blocks not causal), at the compute-bound
+    shape beside K6a's and K6b's (T = 2048, 128 heads, D = 128), at the
+    zigzag ring's half blocks (Tq != Tk), and at widths of 20 and 160."""
+    return _other_shape(
+        _k6b_ring_one(4096, 128, 128, 32, True, 18),
+        _k6b_ring_one(4096, 128, 128, 32, False, 19),
+        _k6b_ring_one(SEQ_GROUPS * SEQ_ENDPOINTS, SEQ_WINDOW, SEQ_WINDOW,
+                      SEQ_EMBED, True, 20, iters=5, eager_iters=5),
+        _k6b_ring_one(64, 64, 128, 32, False, 21),
+        _k6b_ring_one(64, 128, 64, 32, False, 22),
+        _k6b_ring_one(256, 128, 128, 20, True, 23, iters=5, eager_iters=10),
+        _k6b_ring_one(256, 128, 128, WIDE_HEAD, True, 24, iters=5,
+                      eager_iters=10))
+
+
 def _head_inputs(T, S, D, H, seed):
     """x [T, S, D] bf16 (unit normal, as an attended representation),
     the head's params at the model's init scales with small random
@@ -935,7 +1074,7 @@ def _head_rows():
 def phase_kernels() -> list:
     return [_k1(), _k2(), _other_shape(_k3(), _k3(WIDE_HIDDEN)),
             _other_shape(_k3_scores(), _k3_scores(WIDE_HIDDEN)), _k4(),
-            _k6a(), *_flash_train(), _k9(), *_head_rows()]
+            _k6a(), *_flash_train(), _k9(), *_head_rows(), _k6b_ring()]
 
 
 def phase_flash_crossover(S: int = 1024, D: int = 32,
@@ -1501,6 +1640,235 @@ def phase_temporal_fused_train(device: str, steps: int = TRAIN_STEPS,
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the sequence-sharded temporal path: ranks under torch.distributed.run
+# ---------------------------------------------------------------------------
+
+
+def _rank_device(device: str) -> str:
+    """The ranks' --device: every rank on the one card (``cuda:0``), as a
+    machine with one card runs a mesh, or the CPU."""
+    return "cuda:0" if device == "cuda" else device
+
+
+def run_ranks(ranks: int, argv, timeout: int = 600) -> tuple:
+    """(rank 0's JSON, wall ms, rank 0's stderr log lines) of ``python -m
+    torch.distributed.run --standalone --nproc-per-node ranks -m
+    argv...`` from this checkout; a non-zero exit fails the phase."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(ranks), "-m", *argv]
+    t0 = time.perf_counter()
+    # a process group of its own, so that a timeout stops the ranks too
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            process_group=0,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeError(f"{' '.join(argv)} on {ranks} ranks took more "
+                         f"than {timeout} s")
+    ms = (time.perf_counter() - t0) * 1e3
+    check(proc.returncode == 0,
+          f"{' '.join(argv)} on {ranks} ranks exited {proc.returncode}:\n"
+          f"{out[-2000:]}\n{err[-4000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"{' '.join(argv)}: {len(lines)} JSON lines on "
+          f"stdout, not one (rank 0's)")
+    return json.loads(lines[0]), ms, err.splitlines()
+
+
+def _step_losses(lines) -> list:
+    """The per-step losses a ``train`` run logged (``step N loss X``)."""
+    out = []
+    for ln in lines:
+        words = ln.split()
+        if len(words) == 4 and words[0] == "step" and words[2] == "loss":
+            out.append(float(words[3]))
+    return out
+
+
+def run_cli_logged(argv) -> tuple:
+    """:func:`run_cli` with its stderr log lines."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out, ms = run_cli(argv)
+    return out, ms, err.getvalue().splitlines()
+
+
+def _rank_launches(out: dict) -> dict:
+    """The kernel launches of every rank of a sharded command, summed."""
+    total = {}
+    for r in out["ranks"]:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _check_trajectory(name, got, want, rtol, atol) -> float:
+    """Two runs' per-step losses within rtol, atol; returns the largest
+    relative difference."""
+    check(len(got) == len(want) and len(got) > 0,
+          f"{name}: {len(got)} against {len(want)} logged losses")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(math.isfinite(a) and abs(a - b) <= atol + rtol * abs(b),
+              f"{name}: step {i + 1} loss {a} against {b} (rtol {rtol}, "
+              f"atol {atol})")
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_temporal_sharded_train(device: str, ranks: int = SHARDED_RANKS,
+                                 window: int = SHARDED_WINDOW,
+                                 groups: int = 256, endpoints: int = 32,
+                                 hidden: int = 128,
+                                 steps: int = SHARDED_STEPS,
+                                 cpu_groups: int = SHARDED_CPU_GROUPS,
+                                 launch_counts=None) -> dict:
+    """``train --model temporal --supervision sequence --sharded --window
+    256`` on ``ranks`` ranks on one card (data 2 x seq 2: 128-step blocks
+    of 4096 streams a rank, the flash local), the other sizes the
+    command's defaults: its per-step losses against the unsharded command
+    on the card (the reference's sharded tolerance), and the same
+    command with ``cpu_groups`` groups on the card against the CPU's
+    ranks (``TRAIN_LOSS_RTOL``).  On the card rank (d, s) must launch
+    K6b-ring s + 1 times a step and no other flash kernel.  The launch
+    counts are the ranks' own, each process starting from none."""
+    argv = ["train", "--model", "temporal", "--supervision", "sequence",
+            "--window", str(window), "--groups", str(groups),
+            "--endpoints", str(endpoints), "--hidden", str(hidden),
+            "--steps", str(steps), "--seed", "0"]
+    out, ms, log_lines = run_ranks(ranks, [
+        PKG, *argv, "--sharded", "--device", _rank_device(device)])
+    launches = _rank_launches(out)
+    flat, flat_ms, flat_lines = run_cli_logged([*argv, "--device", device])
+    losses, flat_losses = _step_losses(log_lines), _step_losses(flat_lines)
+    rel = _check_trajectory("temporal_sharded_train vs unsharded", losses,
+                            flat_losses, SHARDED_LOSS_RTOL,
+                            SHARDED_LOSS_ATOL)
+    check(out["step"] == steps and out["world"] == ranks,
+          f"temporal_sharded_train: {out['step']} steps on "
+          f"{out['world']} ranks")
+    check(out["local"] == "flash",
+          f"temporal_sharded_train: the ring attends with {out['local']}")
+    if device == "cuda":
+        for r in out["ranks"]:
+            want = {K6B_RING: (r["seq"] + 1) * steps}
+            check(r["launches"].get(K6B_RING, 0) == want[K6B_RING]
+                  and not any(r["launches"].get(k) for k in
+                              (K6A, K6B, K7, K8, K9)),
+                  f"temporal_sharded_train: rank {r['rank']} (seq "
+                  f"{r['seq']}) launched {r['launches']}, not {want}")
+    cut = ["--groups", str(cpu_groups)]
+    card, _, card_lines = run_ranks(ranks, [
+        PKG, *argv, *cut, "--sharded", "--device", _rank_device(device)])
+    cpu, cpu_ms, cpu_lines = run_ranks(ranks, [
+        PKG, *argv, *cut, "--sharded", "--device", "cpu"])
+    cpu_rel = _check_trajectory(
+        "temporal_sharded_train vs the CPU", _step_losses(card_lines),
+        _step_losses(cpu_lines), TRAIN_LOSS_RTOL, 0.0)
+    return {"phase": "temporal_sharded_train", "device": out["device"],
+            "world": out["world"], "mesh": out["mesh"],
+            "local": out["local"], "backend": out["backend"],
+            "window": window, "groups": groups, "endpoints": endpoints,
+            "steps": steps, "losses": losses, "loss": out["loss"],
+            "ms": ms, "ms_per_step": out["ms_per_step"],
+            "staged_bytes_per_step_by_rank": [
+                r["staged_bytes_per_step"] for r in out["ranks"]],
+            "launches_by_rank": [{"rank": r["rank"], "data": r["data"],
+                                  "seq": r["seq"], **r["launches"]}
+                                 for r in out["ranks"]],
+            "unsharded_losses": flat_losses, "unsharded_ms": flat_ms,
+            "loss_max_rel_err_vs_unsharded": rel,
+            "cpu_cut": {"groups": cpu_groups,
+                        "losses": _step_losses(card_lines),
+                        "cpu_losses": _step_losses(cpu_lines),
+                        "cpu_ms": cpu_ms,
+                        "ms_per_step": card["ms_per_step"],
+                        "cpu_ms_per_step": cpu["ms_per_step"]},
+            "loss_max_rel_err_vs_cpu": cpu_rel, "launches": launches}
+
+
+def phase_temporal_sharded_train_1(device: str, window: int = 64,
+                                   groups: int = 256, endpoints: int = 32,
+                                   hidden: int = 128,
+                                   steps: int = SHARDED_STEPS,
+                                   unsharded_loss=None,
+                                   launch_counts=None) -> dict:
+    """``train --sharded`` with no launcher: a world of one rank on
+    ``device`` (a 1 x 1 mesh, no process group), ``--window 64``, so one
+    K6b-ring launch a step (the diagonal block); its final loss against
+    ``unsharded_loss``, the unsharded command's after as many steps, where
+    given (the reference's sharded tolerance)."""
+    argv = ["train", "--model", "temporal", "--supervision", "sequence",
+            "--sharded", "--window", str(window), "--groups", str(groups),
+            "--endpoints", str(endpoints), "--hidden", str(hidden),
+            "--steps", str(steps), "--seed", "0", "--device", device]
+    out, ms = run_cli(argv)
+    launches = launch_counts() if launch_counts else {}
+    check(out["world"] == 1 and out["mesh"] == {"data": 1, "seq": 1}
+          and out["backend"] is None and out["local"] == "flash",
+          f"temporal_sharded_train_1: {out}")
+    check(out["step"] == steps and math.isfinite(out["loss"]),
+          f"temporal_sharded_train_1: {out}")
+    rel = None
+    if unsharded_loss is not None:
+        rel = abs(out["loss"] - unsharded_loss) / abs(unsharded_loss)
+        check(abs(out["loss"] - unsharded_loss)
+              <= SHARDED_LOSS_ATOL + SHARDED_LOSS_RTOL * abs(unsharded_loss),
+              f"temporal_sharded_train_1: loss {out['loss']} against "
+              f"{unsharded_loss} unsharded")
+    return {"phase": "temporal_sharded_train_1", **out, "ms": ms,
+            "loss_rel_err_vs_unsharded": rel, "launches": launches}
+
+
+def phase_temporal_sharded_plan(device: str, ranks: int = SHARDED_RANKS,
+                                groups: int = 8, endpoints: int = 16,
+                                window: int = 64,
+                                launch_counts=None) -> dict:
+    """``plan --model temporal --sharded`` on ``ranks`` ranks on one card
+    (the sizes default to the command's own) against the unsharded
+    command on ``device``, by the reference's sharded-plan law; the share
+    of equal cells is recorded."""
+    import numpy as np
+
+    argv = ["plan", "--model", "temporal", "--groups", str(groups),
+            "--endpoints", str(endpoints), "--window", str(window),
+            "--seed", "0"]
+    out, ms, _ = run_ranks(ranks, [PKG, *argv, "--sharded", "--device",
+                                   _rank_device(device)])
+    flat, flat_ms = run_cli([*argv, "--device", device])
+    got, want = (np.asarray(x["weights"], np.int64) for x in (out, flat))
+    check(got.shape == (groups, endpoints),
+          f"temporal_sharded_plan: weights shape {got.shape}")
+    diff = int(np.abs(got - want).max())
+    equal = float((got == want).mean())
+    check(diff <= 1 and equal >= SHARDED_PLAN_EQUAL,
+          f"temporal_sharded_plan: max |dw| {diff}, {equal} of cells "
+          f"equal (allowed 1, at least {SHARDED_PLAN_EQUAL})")
+    return {"phase": "temporal_sharded_plan", "device": out["device"],
+            "world": out["world"], "mesh": out["mesh"], "ms": ms,
+            "unsharded_ms": flat_ms, "max_abs_err_vs_unsharded": diff,
+            "equal_share_vs_unsharded": equal,
+            "launches": _rank_launches(out)}
+
+
+def phase_ring_attention(device: str, ranks: int = SHARDED_RANKS,
+                         T: int = 512, H: int = 256, D: int = 32,
+                         launch_counts=None) -> dict:
+    """A 1-D seq ring of ``ranks`` ranks on one card:
+    ``make_ring_attention(local="flash", causal=True)`` and its gradients
+    against ``attention_reference`` on the gathered inputs
+    (``kernels/chip_checks.py ring``, which fails on a miss)."""
+    out, ms, _ = run_ranks(ranks, [
+        f"{PKG}.kernels.chip_checks", "ring", "--device",
+        _rank_device(device), "--T", str(T), "--H", str(H), "--D", str(D)])
+    total = sum(out["launches_by_seq_rank"].values())
+    return {**out, "ms": ms,
+            "launches": {K6B_RING: total} if total else {}}
+
+
 def _compare_fleet(name, got, want):
     import numpy as np
 
@@ -1700,6 +2068,7 @@ def main() -> int:
     chunked_once = {K6B: train_calls, K9: train_calls, K7: 0, K8: 0,
                     K6A: 0}
     no_head = {K10: 0, K11: 0}
+    no_flash = {K6A: 0, K6B: 0, K7: 0, K8: 0, K9: 0, **no_head}
     path = (("plan", lambda c: phase_plan("cuda", launch_counts=c),
              ("probe_double", "fused_mlp_plan"), no_head),
             ("whole_fleet", lambda c: phase_fleet("cuda", launch_counts=c),
@@ -1741,7 +2110,26 @@ def main() -> int:
              lambda c: phase_temporal_fused_train("cuda", launch_counts=c),
              (K6B, K7, K8, K10, K11),
              {k: n * TRAIN_STEPS for k, n in
-              {**train_once, K10: 1, K11: 1}.items()}))
+              {**train_once, K10: 1, K11: 1}.items()}),
+            # the ring's backward is einsums, as in the reference: no flash
+            # kernel but K6b-ring; seq rank s launches it s + 1 times a
+            # step (checked rank by rank in the phase)
+            ("temporal_sharded_train",
+             lambda c: phase_temporal_sharded_train("cuda",
+                                                    launch_counts=c),
+             (K6B_RING,), {K6B_RING: 2 * (1 + 2) * SHARDED_STEPS,
+                           **no_flash}),
+            ("temporal_sharded_train_1",
+             lambda c: phase_temporal_sharded_train_1(
+                 "cuda", launch_counts=c,
+                 unsharded_loss=records["temporal_train"]["check_loss"]),
+             (K6B_RING,), {K6B_RING: SHARDED_STEPS, **no_flash}),
+            ("temporal_sharded_plan",
+             lambda c: phase_temporal_sharded_plan("cuda", launch_counts=c),
+             (), {K6B_RING: 0, **no_flash}),
+            ("ring_attention",
+             lambda c: phase_ring_attention("cuda", launch_counts=c),
+             (K6B_RING,), {K6B_RING: sum(range(1, SHARDED_RANKS + 1))}))
     for name, fn, expect, exact in path:
         t0 = time.perf_counter()
         counts = run_path_phase(name, fn, expect, build, records, exact)
@@ -1755,6 +2143,19 @@ def main() -> int:
     log(json.dumps(phase_flash_crossover()))
     log(json.dumps({"phase": "kernels",
                     "seconds": time.perf_counter() - t0}))
+
+    # K6b-ring's device time a step on each seq rank of the sharded
+    # train phase, composed from the kernel rows (the causal diagonal
+    # block, then s earlier blocks, each timed alone under a CUDA graph),
+    # not measured inside the step
+    ring_rec = next(r for r in kernels if r["name"] == K6B_RING)
+    sharded = records["temporal_sharded_train"]
+    log(json.dumps({
+        "phase": "temporal_sharded_train_kernel_share",
+        "ms_per_step": sharded["ms_per_step"],
+        "k6b_ring_ms_per_step_by_seq_rank_composed_from_kernel_rows": [
+            ring_rec["ms"] + s * ring_rec["at_other_shapes"][0]["ms"]
+            for s in range(sharded["mesh"]["seq"])]}))
 
     for rec in kernels:
         rec["launches"] = totals.get(rec["name"], 0)

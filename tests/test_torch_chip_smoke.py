@@ -122,3 +122,43 @@ def test_temporal_chunk_train_seq_phase_rehearses_on_cpu():
         "embed", "wq", "wk", "wv", "w1", "b1", "w2", "b2"}
     assert max(out["grad_error_vs_unchunked"].values()) <= 1.0
     assert out["loss_rel_err_vs_unchunked"] <= 1e-4
+
+
+def test_temporal_sharded_train_phase_rehearses_on_cpu():
+    """Four CPU ranks under torch.distributed.run at a 128-step window
+    (64-step blocks, so the flash local: the plain K6b-ring), held to the
+    unsharded command and to themselves as the "CPU" side; no launch."""
+    out = chip_smoke.phase_temporal_sharded_train(
+        "cpu", window=128, groups=4, endpoints=4, hidden=16, steps=2,
+        cpu_groups=4)
+    assert (out["world"], out["mesh"], out["local"]) == (
+        4, {"data": 2, "seq": 2}, "flash")
+    assert len(out["losses"]) == len(out["unsharded_losses"]) == 2
+    assert out["loss_max_rel_err_vs_unsharded"] <= chip_smoke \
+        .SHARDED_LOSS_RTOL
+    assert out["loss_max_rel_err_vs_cpu"] == 0
+    assert out["launches"] == {}
+    assert out["staged_bytes_per_step_by_rank"] == [0.0] * 4
+
+
+def test_temporal_sharded_train_1_phase_rehearses_on_cpu():
+    build.reset_launch_counts()
+    out = chip_smoke.phase_temporal_sharded_train_1(
+        "cpu", groups=3, endpoints=4, hidden=16, steps=2,
+        launch_counts=build.launch_counts)
+    assert out["world"] == 1 and out["local"] == "flash"
+    assert not any(out["launches"].values())
+
+
+def test_temporal_sharded_plan_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_temporal_sharded_plan("cpu", groups=4,
+                                                 endpoints=4, window=16)
+    assert out["mesh"] == {"data": 2, "seq": 2}
+    assert out["equal_share_vs_unsharded"] >= chip_smoke.SHARDED_PLAN_EQUAL
+
+
+def test_ring_attention_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_ring_attention("cpu", T=128, H=8, D=16)
+    assert out["world"] == 4 and out["launches"] == {}
+    assert out["o_ulps_of_magnitude_vs_dense"] <= 2
+    assert max(out["grad_ulps_of_head_max_vs_dense"].values()) <= 4

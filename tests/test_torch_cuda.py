@@ -743,3 +743,79 @@ def test_plan_command_at_hidden_256_on_card_matches_cpu(cuda, capsys):
     cpu = json.loads(capsys.readouterr().out)
     assert parity.weights_close(np.asarray(card["weights"]),
                                 np.asarray(cpu["weights"]))
+
+
+# K6b-ring at the shapes of chip_smoke.py's rows, and at ragged ones
+RING_SHAPES = [(4096, 128, 128, 32, True), (4096, 128, 128, 32, False),
+               (128, 2048, 2048, 128, True), (64, 64, 128, 32, False),
+               (64, 128, 64, 32, False), (256, 128, 128, 20, True),
+               (256, 128, 128, 160, True), (3, 1, 1, 8, True),
+               (5, 70, 200, 40, True), (5, 200, 70, 16, True),
+               (2, 130, 65, 256, False)]
+
+
+@pytest.mark.parametrize("H,Tq,Tk,D,causal", RING_SHAPES)
+def test_ring_stats_kernel_matches_plain_version(cuda, H, Tq, Tk, D, causal):
+    """K6b-ring (f32 q, bf16 k and v) against its plain version at the
+    kernel's block, TF32 off (the plain q'.k^T a true f32 product): o
+    within 2 bf16 ulps of the magnitude it sums, l within 1e-5 relative,
+    m within D f32 ulps of the largest |q'| . |k| (a q' rounded to bf16
+    would move m by about 2**-9 of |s|); two runs bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(H + Tq + Tk + D)
+    q = torch.randn(H, Tq, D, device=cuda, generator=g)
+    k, v = (torch.randn(H, Tk, D, device=cuda, generator=g)
+            .to(torch.bfloat16) for _ in range(2))
+    o, m, l = ca.flash_attention_stats_ring(q, k, v, causal)
+    po, pm, pl = ca.flash_attention_stats_ring_plain(q, k, v, causal, BLOCK_K)
+    mag = ca.flash_attention_stats_ring_plain(q, k, v.abs(), causal,
+                                              BLOCK_K)[0]
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    assert tuple(o.shape) == (H, Tq, D) and tuple(m.shape) == (H, Tq)
+    assert parity.attention_close(_host(o), _host(po), _host(mag))
+    np.testing.assert_allclose(_host(l), _host(pl), rtol=1e-5, atol=0)
+    s_mag = float(((q.abs() * D ** -0.5)
+                   @ k.float().abs().transpose(1, 2)).max())
+    assert float((m - pm).abs().max()) <= D * 2.0 ** -24 * s_mag
+    again = ca.flash_attention_stats_ring(q, k, v, causal)
+    assert all(torch.equal(a, b) for a, b in zip(again, (o, m, l)))
+
+
+def test_ring_stats_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros(2, 64, 16, device=cuda)
+    kv = torch.zeros(2, 64, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 q"):
+        ca.flash_attention_stats_ring(q.to(torch.bfloat16), kv, kv)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ca.flash_attention_stats_ring(q, kv.float(), kv)
+    strided = torch.zeros(2, 16, 64, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.flash_attention_stats_ring(strided, kv, kv)
+    with pytest.raises(ValueError, match=r"\[H, Tq, D\]"):
+        ca.flash_attention_stats_ring(q, kv[:1], kv[:1])
+    with pytest.raises(ValueError):
+        ca.flash_attention_stats_ring(q.cpu(), kv, kv)
+
+
+def test_ring_of_two_ranks_on_one_card(cuda):
+    """Two gloo ranks on card 0 (``--device cuda:0``, staged through the
+    host): ``kernels/chip_checks.py ring`` holds the flash-local ring and
+    its gradients against dense attention and checks each rank's
+    K6b-ring launches, and exits non-zero on a miss."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m",
+         "aws_global_accelerator_controller_tpu_torch.kernels.chip_checks",
+         "ring", "--device", f"cuda:{cuda.index}", "--T", "256", "--H",
+         "64", "--D", "32"], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["launches_by_seq_rank"] == {"0": 1, "1": 2}
+    assert out["staged_bytes_rank0"] > 0

@@ -41,6 +41,7 @@ from aws_global_accelerator_controller_tpu_torch.models.traffic import (
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
     flash_attention,
     flash_attention_stats,
+    flash_attention_stats_ring,
     flash_bwd_dkv,
     flash_bwd_dq,
 )
@@ -140,6 +141,10 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(DeviceError):
         main(["train", "--model", "temporal", "--steps", "1"])
     with pytest.raises(DeviceError):
+        main(["train", "--model", "temporal", "--sharded", "--steps", "1"])
+    with pytest.raises(DeviceError):
+        main(["plan", "--model", "temporal", "--sharded"])
+    with pytest.raises(DeviceError):
         tdevice.resolve_device("mps")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
 
@@ -170,6 +175,8 @@ def test_kernel_wrappers_refuse_other_devices():
         flash_attention(qkv, qkv, qkv)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_stats(qkv, qkv, qkv)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_stats_ring(qkv.float(), qkv, qkv)
     with pytest.raises(ValueError, match="CUDA"):
         flash_bwd_dq(qkv, qkv, qkv, qkv, stats, stats, stats)
     with pytest.raises(ValueError, match="CUDA"):
@@ -204,6 +211,9 @@ def test_cpu_calls_build_and_launch_nothing():
     tmodel.loss(tparams, window, wbatch)
     tmodel.train_step(tparams, tmodel.init_opt_state(tparams), window,
                       wbatch)
+    flash_attention_stats_ring(torch.ones(2, 64, 16), torch.ones(
+        2, 64, 16, dtype=torch.bfloat16), torch.ones(
+            2, 64, 16, dtype=torch.bfloat16), causal=True)
     fused = TemporalTrafficModel(embed_dim=16, hidden_dim=16,
                                  supervision="sequence", head="fused_always")
     fused.train_step(tparams, fused.init_opt_state(tparams), window, wbatch)
@@ -213,7 +223,7 @@ def test_cpu_calls_build_and_launch_nothing():
                            "fused_mlp_scores", "row_splice",
                            "flash_attention", "flash_attention_stats",
                            "flash_bwd_dq", "flash_bwd_dkv", "score_head_fwd",
-                           "score_head_bwd"}
+                           "score_head_bwd", "flash_attention_stats_ring"}
     assert not any(counts.values())
     if not torch.cuda.is_available():
         assert build._library is None
