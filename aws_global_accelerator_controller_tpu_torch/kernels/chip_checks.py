@@ -52,6 +52,35 @@ gradient by about an ulp of the largest terms it sums); rank s must
 launch K6b-ring s + 1 times.  It prints one JSON object and exits
 non-zero if a check fails.
 
+``fleet_sharded``, run by ``torch.distributed.run``: the sharded
+whole-fleet layout on every rank (``WholeFleetPlanner(world=...)``,
+``--shards`` = the world's size), on ``chip_smoke.py``'s fleets:
+``--fleet bench`` (``fleet_plan_groups``, the ``fleet-plan`` bench leg's
+shape) or ``--fleet resident`` (the resident phase's version-0 groups),
+``--groups`` and ``--cap`` their sizes.  Each rank plans a warm pass, the
+device pass alone (timed, as is the upload of its shard; on the card
+it must stage 0 bytes: the stats cross the ranks through kernel K5's
+peer stores), and a timed pass, whose
+launches it holds to K5 ``launches_per_pass`` times and K2 and the K3
+row entry once, and whose staged bytes to the gather's; then it plans
+the flat layout on its own device and demands every array and the
+stats equal.  Rank 0 checks that every rank holds the same result,
+prints one JSON object, and with ``--out PATH`` saves the plan (npz) for
+a comparison across devices.
+
+``fleet_sharded --ring-only``: kernel K5 alone on a data axis of every
+rank.  ``--passes`` (200) reduces back to back, each of its own seeded
+[5] f32 vectors of arbitrary magnitudes, through the card's ring; then
+the same vectors' CPU copies through the plain ring (gloo) among the
+same ranks, and each rank's numpy sum in the reference's hop order:
+every sum must equal both bit for bit, and a ring run on the card with
+one hop fewer must be caught by the same comparison; at the end the
+ranks close the ring's slots (unmap and free).  Times: the
+ring's per-pass wall ms (hops, synchronises, barriers), the plain
+ring's, gloo's ``all_reduce`` of the same vector on the card (staged:
+NCCL refuses two ranks on one card), and one hop launch's device ms
+(CUDA events over a CUDA graph of launches) and eager ms.
+
 ``gloo``, run by ``torch.distributed.run`` on 2 ranks: whether gloo
 takes CUDA tensors as they are (``all_reduce``, ``all_gather`` and a
 ``batch_isend_irecv`` hop), which decides whether the sharded path must
@@ -66,6 +95,7 @@ Run from the root of a checkout, on a machine with one card::
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks profile [--window T --chunks 0 32 ...]
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ring --device cuda:0
     python3 -m torch.distributed.run --standalone --nproc-per-node 2 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks gloo --device cuda:0
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks fleet_sharded --device cuda:0 [--fleet resident --groups 1000000 --cap 4] [--ring-only]
 
 Each prints one JSON object a run (a train step setting), and ``faults``
 exits non-zero if a fault went unnoticed.
@@ -471,6 +501,304 @@ def gloo(device: str = "cuda") -> int:
     return 0
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` of this checkout: its fleets and timers."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _fleet(kind: str, groups: int, shards: int, cap: int):
+    from ..reconcile.columnar import pack_fleet
+
+    cs = _chip_smoke()
+    if kind == "bench":
+        specs = cs.fleet_plan_groups(groups, shards)
+    else:
+        gen = cs.ResidentFleetGen(groups, shards)
+        specs = [gen.group(i, 0) for i in range(groups)]
+    return pack_fleet(specs, endpoints_cap=cap, shards=shards,
+                      feature_dim=cs.F)
+
+
+def _digest(res) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in (res.desired_w, res.to_add, res.to_remove, res.to_reweight):
+        h.update(a.tobytes())
+    h.update(json.dumps(res.stats, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def _same_plan(a, b) -> bool:
+    import numpy as np
+
+    return (all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+        "desired_w", "to_add", "to_remove", "to_reweight"))
+        and a.stats == b.stats)
+
+
+def fleet_sharded(device: str = "cuda", fleet_kind: str = "bench",
+                  groups: int = 16384, cap: int = 16, out: str = "") -> int:
+    import time
+
+    import numpy as np
+    import torch
+
+    from ..ops.cuda_ring import launches_per_pass
+    from ..parallel.distributed import (
+        Group,
+        join_world,
+        peer_bytes,
+        staged_bytes,
+    )
+    from ..parallel.fleet_plan import STAT_RESCORED, WholeFleetPlanner
+    from .build import launch_counts, reset_launch_counts
+
+    with join_world(device) as world:
+        n, on_card = world.size, world.device.type == "cuda"
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(world.device)
+
+        t0 = time.perf_counter()
+        fleet = _fleet(fleet_kind, groups, n, cap)
+        pack_s = time.perf_counter() - t0
+        planner = WholeFleetPlanner(seed=0, world=world)
+        planner.plan(fleet)                                   # warm
+        sync()
+        t0 = time.perf_counter()
+        fn, rows, rest = planner.prepare(fleet)
+        sync()
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        staged0, peer0 = staged_bytes(), peer_bytes()
+        t0 = time.perf_counter()
+        fn(planner.params, rows, *rest)
+        sync()
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        pass_staged = staged_bytes() - staged0
+        pass_peer = peer_bytes() - peer0
+        reset_launch_counts()
+        staged0, peer0 = staged_bytes(), peer_bytes()
+        sync()
+        t0 = time.perf_counter()
+        res = planner.plan(fleet)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in launch_counts().items() if v}
+        plan_staged = staged_bytes() - staged0
+        plan_peer = peer_bytes() - peer0
+        flat_planner = WholeFleetPlanner(params=planner.params,
+                                         device=world.device)
+        flat_planner.plan(fleet)                              # warm
+        sync()
+        t0 = time.perf_counter()
+        flat = flat_planner.plan(fleet)
+        flat_ms = (time.perf_counter() - t0) * 1e3
+        S, Gs, E = fleet.desired.shape
+        mine = {"rank": world.rank, "launches": launches,
+                "plan_ms": plan_ms, "flat_ms": flat_ms,
+                "prepare_ms": prepare_ms, "device_pass_ms": pass_ms,
+                "device_pass_staged_bytes": pass_staged,
+                "device_pass_peer_bytes": pass_peer,
+                "plan_staged_bytes": plan_staged,
+                "plan_peer_bytes": plan_peer,
+                "equal_to_flat": _same_plan(res, flat),
+                "layout": res.layout, "digest": _digest(res)}
+        ranks = Group(range(n), world.rank).gather_objects(mine)
+        if world.rank:
+            return 0
+        k = STAT_RESCORED + 1             # the stats the ring reduces
+        gather_bytes = 4 * Gs * E * 4 * (1 + S) if on_card else 0
+        bad = [f"rank {r['rank']}: layout {r['layout']}" for r in ranks
+               if r["layout"] != "sharded"]
+        bad += [f"rank {r['rank']} differs from its flat pass"
+                for r in ranks if not r["equal_to_flat"]]
+        if len({r["digest"] for r in ranks}) != 1:
+            bad.append("the ranks' results differ")
+        for r in ranks:
+            want = ({"stats_ring": launches_per_pass(n), "plan_weights": 1,
+                     "fused_mlp_scores": 1} if on_card else {})
+            if r["launches"] != want:
+                bad.append(f"rank {r['rank']} launched {r['launches']} in "
+                           f"a pass, not {want}")
+            if r["device_pass_staged_bytes"] != 0:
+                bad.append(f"rank {r['rank']}: the device pass staged "
+                           f"{r['device_pass_staged_bytes']} bytes")
+            if r["plan_staged_bytes"] != gather_bytes:
+                bad.append(f"rank {r['rank']}: a pass staged "
+                           f"{r['plan_staged_bytes']} bytes, the gather "
+                           f"{gather_bytes}")
+            peer = (n - 1) * k * 4 if on_card else 0
+            if r["device_pass_peer_bytes"] != peer \
+                    or r["plan_peer_bytes"] != peer:
+                bad.append(f"rank {r['rank']}: {r['plan_peer_bytes']} "
+                           f"peer bytes a pass, not {peer}")
+        if out:
+            np.savez(out, desired_w=res.desired_w, to_add=res.to_add,
+                     to_remove=res.to_remove, to_reweight=res.to_reweight,
+                     stats=json.dumps(res.stats))
+        print(json.dumps({
+            "phase": "fleet_sharded", "fleet": fleet_kind,
+            "device": str(world.device), "world": n, "groups": groups,
+            "endpoints_cap": cap, "shards": S, "groups_per_shard": Gs,
+            "pack_s": pack_s, "stats": res.stats,
+            "ranks": [{k: v for k, v in r.items() if k != "digest"}
+                      for r in ranks],
+            "gather_staged_bytes": gather_bytes,
+            "launches_per_pass": launches_per_pass(n),
+            "passes": 3, "errors": bad}), flush=True)
+        if bad:
+            print("fleet_sharded: " + "; ".join(bad), file=sys.stderr)
+            return 1
+        return 0
+
+
+def _skip_a_hop(slots, stats):
+    """Kernel K5 driven one hop short: the fault the ring check must
+    catch."""
+    import torch
+
+    from ..ops.cuda_ring import stats_ring_hop
+
+    x = stats.contiguous()
+    acc = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device)
+    for h in range(slots.group.size - 2):
+        g = slots.hops
+        src = x if h == 0 else slots.own_slot(g - 1)
+        stats_ring_hop(src, slots.peer_slot(g), acc, x.numel(), h > 0)
+        stream.synchronize()
+        slots.group.barrier()
+        slots.hops = g + 1
+    if slots.group.size > 2:
+        stats_ring_hop(slots.own_slot(slots.hops - 1), None, acc,
+                       x.numel(), True)
+    else:
+        acc.copy_(x)
+    return acc
+
+
+def stats_ring_check(device: str = "cuda", passes: int = 200,
+                     k: int = 5, seed: int = 0) -> int:
+    import time
+
+    import numpy as np
+    import torch
+
+    from ..ops.cuda_ring import (
+        close_peer_slots,
+        launches_per_pass,
+        peer_slots,
+        stats_ring_hop,
+    )
+    from ..parallel.distributed import join_world, peer_bytes, staged_bytes
+    from ..parallel.fleet_plan import _make_stats_ring
+    from ..parallel.mesh import make_mesh
+    from .build import launch_counts, reset_launch_counts
+
+    with join_world(device) as world:
+        group = make_mesh(world, ("data",)).groups["data"]
+        n, i, dev = group.size, group.index, world.device
+        rng = np.random.default_rng(seed)
+        vecs = (rng.standard_normal((passes, n, k))
+                * 10.0 ** rng.integers(-6, 7, (passes, n, k))).astype(
+                    np.float32)
+        reduce = _make_stats_ring(group, dev)
+        on_card = dev.type == "cuda"
+        mine = [torch.from_numpy(v[i].copy()).to(dev) for v in vecs]
+        if on_card:
+            torch.cuda.synchronize(dev)
+        reset_launch_counts()
+        staged0, peer0 = staged_bytes(), peer_bytes()
+        t0 = time.perf_counter()
+        sums = [reduce(x) for x in mine]
+        pass_ms = (time.perf_counter() - t0) * 1e3 / passes
+        launches = launch_counts().get("stats_ring", 0)
+        staged = staged_bytes() - staged0
+        peer = peer_bytes() - peer0
+        got = torch.stack(sums).cpu().numpy()
+        plain_reduce = _make_stats_ring(group, "cpu")
+        t0 = time.perf_counter()
+        plain = torch.stack([plain_reduce(torch.from_numpy(v[i].copy()))
+                             for v in vecs]).numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / passes
+        want = np.empty_like(got)
+        for p, v in enumerate(vecs):
+            acc = v[i].copy()
+            for h in range(1, n):
+                acc = (acc + v[(i - h) % n]).astype(np.float32)
+            want[p] = acc
+        equal_plain = bool(np.array_equal(got.view(np.int32),
+                                          plain.view(np.int32)))
+        equal_numpy = bool(np.array_equal(got.view(np.int32),
+                                          want.view(np.int32)))
+        max_err = float(np.abs(got.astype(np.float64)
+                               - plain.astype(np.float64)).max())
+        rec = {"rank": i, "pass_ms": pass_ms, "plain_pass_ms": plain_ms,
+               "launches": launches, "staged_bytes": staged,
+               "peer_bytes": peer, "equal_to_plain": equal_plain,
+               "equal_to_numpy_hop_order": equal_numpy,
+               "max_abs_err_vs_plain": max_err}
+        if on_card:
+            slots = peer_slots(group, dev)
+            short = _skip_a_hop(slots, mine[0])
+            rec["skipped_hop_caught"] = not np.array_equal(
+                short.cpu().numpy().view(np.int32), want[0].view(np.int32))
+            group.barrier()
+            x = mine[0]
+            w = group.all_reduce(x)                           # warm
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for x in mine:
+                w = group.all_reduce(x)
+            torch.cuda.synchronize(dev)
+            rec["gloo_all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 \
+                / passes
+            acc = torch.empty_like(x)
+            cs = _chip_smoke()
+
+            def hop():
+                stats_ring_hop(x, slots.peer_slot(slots.hops), acc, k, True)
+
+            group.barrier()
+            rec["hop_device_ms"] = cs.time_device(hop)
+            rec["hop_eager_ms"] = cs.time_eager(hop)
+            torch.cuda.synchronize(dev)
+            group.barrier()
+            close_peer_slots()
+        ranks = group.gather_objects(rec)
+        if world.rank:
+            return 0
+        bad = [f"rank {r['rank']}: the ring's sums differ from the plain "
+               f"ring's" for r in ranks if not r["equal_to_plain"]]
+        bad += [f"rank {r['rank']}: the ring's sums differ from the hop "
+                f"order's numpy sums" for r in ranks
+                if not r["equal_to_numpy_hop_order"]]
+        for r in ranks:
+            if on_card and r["launches"] != passes * launches_per_pass(n):
+                bad.append(f"rank {r['rank']}: {r['launches']} launches in "
+                           f"{passes} passes, not "
+                           f"{passes * launches_per_pass(n)}")
+            if r["staged_bytes"]:
+                bad.append(f"rank {r['rank']} staged {r['staged_bytes']} "
+                           f"bytes")
+            if on_card and not r["skipped_hop_caught"]:
+                bad.append(f"rank {r['rank']}: a ring one hop short went "
+                           f"unnoticed")
+        print(json.dumps({"phase": "stats_ring", "device": str(dev),
+                          "world": n, "k": k, "passes": passes,
+                          "launches_per_pass": launches_per_pass(n),
+                          "ranks": ranks, "errors": bad}), flush=True)
+        if bad:
+            print("stats_ring: " + "; ".join(bad), file=sys.stderr)
+            return 1
+        return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -500,7 +828,25 @@ def main(argv=None) -> int:
     p_gloo = sub.add_parser("gloo", help="does gloo take CUDA tensors, "
                                          "under torch.distributed.run")
     p_gloo.add_argument("--device", default="cuda")
+    p_fleet = sub.add_parser("fleet_sharded",
+                             help="the sharded whole-fleet pass, or K5 "
+                                  "alone, under torch.distributed.run")
+    p_fleet.add_argument("--device", default="cuda")
+    p_fleet.add_argument("--fleet", choices=("bench", "resident"),
+                         default="bench")
+    p_fleet.add_argument("--groups", type=int, default=16384)
+    p_fleet.add_argument("--cap", type=int, default=16)
+    p_fleet.add_argument("--out", default="",
+                         help="rank 0 saves the plan here (npz)")
+    p_fleet.add_argument("--ring-only", action="store_true",
+                         help="kernel K5 alone against its plain version")
+    p_fleet.add_argument("--passes", type=int, default=200)
     args = ap.parse_args(argv)
+    if args.cmd == "fleet_sharded":
+        if args.ring_only:
+            return stats_ring_check(args.device, args.passes)
+        return fleet_sharded(args.device, args.fleet, args.groups,
+                             args.cap, args.out)
     if args.cmd == "gloo":
         return gloo(args.device)
     if args.cmd == "ring":

@@ -54,11 +54,79 @@ def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(torch.bfloat16)
 
 
+#: XLA's CPU backend splits a reduction over a dimension longer than this
+#: into windows of this size (its tree reduction rewriter)
+XLA_CPU_REDUCE_WINDOW = 32
+
+
+def _sequential_sum(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Sum the first ``k`` axes of ``x`` (bf16) one element after another
+    in row-major order, each f32 add rounded to bf16, over all the other
+    positions at once."""
+    x = x.reshape(-1, *x.shape[k:])
+    acc = torch.zeros(x.shape[1:], dtype=torch.bfloat16, device=x.device)
+    for part in x:
+        acc = (acc.float() + part.float()).to(torch.bfloat16)
+    return acc
+
+
+def xla_cpu_bf16_sum(x: torch.Tensor, dims) -> torch.Tensor:
+    """``reduce_sum`` of bf16 ``x`` over ``dims`` in the order XLA's CPU
+    backend takes it.  While a reduced dimension exceeds 32, every
+    reduced dimension is zero-padded to a multiple of 32 (evenly, the
+    low side the smaller) and summed in windows of 32 per dimension,
+    each window row-major; a last pass sums what is left row-major.
+    Every add is an f32 add rounded to bf16."""
+    dims = sorted(d % x.dim() for d in dims)
+    keep = [d for d in range(x.dim()) if d not in dims]
+    x = x.to(torch.bfloat16).permute(*dims, *keep)
+    r, win = len(dims), XLA_CPU_REDUCE_WINDOW
+    while any(n > win for n in x.shape[:r]):
+        pads = []
+        for n in reversed(x.shape[:r]):
+            extra = -n % win
+            pads += [extra // 2, extra - extra // 2]
+        x = torch.nn.functional.pad(x.movedim(tuple(range(r)),
+                                              tuple(range(-r, 0))), pads)
+        x = x.movedim(tuple(range(-r, 0)), tuple(range(r)))
+        counts = [n // win for n in x.shape[:r]]
+        x = x.reshape(*[v for n in counts for v in (n, win)],
+                      *x.shape[r:])
+        # window axes first (row-major within a window), then the counts
+        x = x.permute(*range(1, 2 * r, 2), *range(0, 2 * r, 2),
+                      *range(2 * r, x.dim()))
+        x = _sequential_sum(x, r)
+    return _sequential_sum(x, r)
+
+
+class _BiasAdd(torch.autograd.Function):
+    """``h + b`` for a bias ``b`` [H] along ``h``'s last axis.  Its bias
+    gradient on CPU tensors is :func:`xla_cpu_bf16_sum` (the order of the
+    reference's bf16 ``reduce_sum`` on the CPU); on CUDA tensors it is
+    autograd's sum, f32 accumulation rounded once: another order, stated
+    and held to the card-vs-CPU tolerance."""
+
+    @staticmethod
+    def forward(ctx, h, b):
+        ctx.dtypes = (h.dtype, b.dtype)
+        return h + b
+
+    @staticmethod
+    def backward(ctx, g):
+        h_dtype, b_dtype = ctx.dtypes
+        lead = tuple(range(g.dim() - 1))
+        if g.device.type == "cpu" and g.dtype == torch.bfloat16:
+            gb = xla_cpu_bf16_sum(g, lead)
+        else:
+            gb = g.sum(lead)
+        return g.to(h_dtype), gb.to(b_dtype)
+
+
 def bf16_linear(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """``x @ w + b`` in bf16: the product rounded, then the bf16 bias
-    added with one more rounding."""
-    return bf16_matmul(x, w) + b
+    added with one more rounding (bias gradient: :class:`_BiasAdd`)."""
+    return _BiasAdd.apply(bf16_matmul(x, w), b)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

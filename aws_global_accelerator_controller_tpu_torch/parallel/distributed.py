@@ -20,6 +20,12 @@ path uses.
   and nowhere else (:func:`_to_wire`, :func:`_from_wire`); the bytes
   staged (both ways) are counted (:func:`staged_bytes`).  The compute
   stays on each rank's device.
+- **Peer copies.**  The fleet stats ring (kernel K5, ``ops/cuda_ring.py``)
+  moves its blocks card to card, as stores into memory that the right
+  neighbour exported (its IPC handle, passed by
+  :meth:`Group.gather_objects`), with a host barrier between hops
+  (:meth:`Group.barrier`); those bytes are counted apart
+  (:func:`peer_bytes`), never as staged.
 """
 from __future__ import annotations
 
@@ -36,12 +42,22 @@ from ..device import Device, DeviceError, resolve_device
 BACKEND = "gloo"
 
 _staged = [0]
+_peer = [0]
 
 
 def staged_bytes() -> int:
     """Bytes this process copied between a device and the host for
     collectives, both directions."""
     return _staged[0]
+
+
+def peer_bytes() -> int:
+    """Bytes this process stored into another rank's device memory."""
+    return _peer[0]
+
+
+def count_peer_bytes(n: int) -> None:
+    _peer[0] += n
 
 
 def _to_wire(t: torch.Tensor) -> torch.Tensor:
@@ -169,6 +185,20 @@ class Group:
         w = torch.tensor([int(flag)])
         dist.all_reduce(w, op=dist.ReduceOp.MAX, group=self.pg)
         return bool(w.item())
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """The first rank's ``t`` on every rank (a new tensor; the other
+        ranks' ``t`` gives only the shape, type and device)."""
+        if self.size == 1:
+            return t.clone()
+        w = _to_wire(t)
+        dist.broadcast(w, src=self.ranks[0], group=self.pg)
+        return _from_wire(w, t)
+
+    def barrier(self) -> None:
+        """Return once every rank of the group has called this."""
+        if self.size > 1:
+            dist.barrier(group=self.pg)
 
     def gather_objects(self, obj) -> list:
         """Every rank's picklable ``obj``, in group order."""

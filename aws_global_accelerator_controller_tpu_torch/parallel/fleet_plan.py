@@ -1,4 +1,4 @@
-"""Device-resident whole-fleet planner (flat layout).
+"""Device-resident whole-fleet planner (flat and sharded layouts).
 
 The port of the JAX package's ``parallel/fleet_plan.py``.  One device
 pass scores every rescored endpoint in the fleet (packed CSR rows, no
@@ -19,9 +19,14 @@ device between waves and replans only the shards a
 full-repack :class:`WholeFleetPlanner` is its ORACLE: incremental
 output must bit-match it (:meth:`ResidentFleetPlanner.verify_full_repack`).
 
-Only the flat single-device layout is ported; the JAX package's
-``shard_map`` layout and its cross-chip stats ring wait for a later
-slice.
+The sharded layout runs over a mesh of ranks (``parallel/mesh.py``):
+``WholeFleetPlanner(world=...)`` with ``1 < fleet.shards <= world.size``
+lays the shards on a ``("data", "model")`` mesh with data = shards and
+model = 1, as the reference's ``_mesh_for`` does; every rank of the
+world calls :meth:`WholeFleetPlanner.plan` together, each rank of the
+mesh plans its own shard, the stats cross the data axis through the
+stats ring (kernel K5, ``ops/cuda_ring.py``), and the shards' plans are
+gathered so that every rank returns the whole result.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 
 from ..device import Device, resolve_device
 from ..models.traffic import TrafficPolicyModel
+from ..ops.cuda_ring import peer_slots, stats_ring_cuda, stats_ring_plain
 from ..ops.cuda_weights import plan_weights_cuda
 from ..ops.diff import EMPTY, plan_observed_diff
 from ..reconcile.columnar import (
@@ -48,7 +54,9 @@ from ..reconcile.columnar import (
     decode_intents,
     pack_fleet,
 )
+from .distributed import Group, World
 from .fleet import DeviceGridRing, make_row_splice
+from .mesh import Mesh, make_mesh
 
 #: stats vector layout (float32)
 STAT_ADDS, STAT_REMOVES, STAT_REWEIGHTS, STAT_LIVE, STAT_RESCORED = \
@@ -88,14 +96,53 @@ def _device_plan_block(score_rows, quantize, params, rows, seg, slot,
     return desired_w.to(torch.int32), to_add, to_remove, to_reweight, stats
 
 
-def make_fleet_pass(model, mesh=None):
-    """The whole-fleet pass over flat ``[G, E]`` grids + global-seg rows,
-    on whatever device its inputs lie on.  Only the flat layout exists
-    in the port: a mesh is refused."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded fleet layout is not ported yet; plan flat")
-    return partial(_device_plan_block, model.score_rows, plan_weights_cuda)
+def _make_stats_ring(group: Group, device: Device = "cuda"):
+    """The cross-shard stats all-reduce over ``group`` as a neighbour ring
+    (the reference's ``_make_stats_ring``): ``reduce(stats [k]) -> [k]``
+    runs n - 1 hops, each adding the block that arrived from the left
+    into the sum, own stats first.  On CUDA tensors it runs kernel K5,
+    whose receive slots are mapped here, collectively over the group; on
+    CPU tensors the plain hops over gloo.  A group of one runs no hop."""
+    dev = resolve_device(device)
+    slots = (peer_slots(group, dev)
+             if dev.type == "cuda" and group.size > 1 else None)
+
+    def reduce(stats: torch.Tensor) -> torch.Tensor:
+        if group.size == 1:
+            return stats.to(torch.float32)
+        if stats.device.type == "cpu":
+            return stats_ring_plain(group, stats)
+        if slots is None:
+            raise ValueError(f"the stats ring was made for {dev}, not for "
+                             f"{stats.device}")
+        return stats_ring_cuda(slots, stats)
+
+    return reduce
+
+
+def make_fleet_pass(model, mesh: Optional[Mesh] = None):
+    """The whole-fleet pass, on whatever device its inputs lie on.
+
+    Without a mesh: the flat pass over ``[G, E]`` grids + global-seg
+    rows.  With one: this rank's pass of the sharded program (the
+    reference's shard_mapped ``_device_fleet_shard``) over its shard's
+    ``[Gs, E]`` grids + local-seg ``[Ns]`` rows; its stats are averaged
+    over the ``"model"`` axis (``pmean``), then summed over ``"data"``
+    by the stats ring, so every rank of the mesh returns the fleet's."""
+    block = partial(_device_plan_block, model.score_rows, plan_weights_cuda)
+    if mesh is None:
+        return block
+    ring = _make_stats_ring(mesh.groups["data"], mesh.world.device)
+    replicas = mesh.groups.get("model")
+
+    def sharded(*args):
+        desired_w, to_add, to_remove, to_reweight, stats = block(*args)
+        if replicas is not None:
+            stats = replicas.all_reduce(stats) / torch.tensor(
+                float(replicas.size), device=stats.device)
+        return desired_w, to_add, to_remove, to_reweight, ring(stats)
+
+    return sharded
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -108,7 +155,7 @@ class FleetPlanResult:
 
     fleet: ColumnarFleet
     device: str
-    layout: str                       # "flat"
+    layout: str                       # "sharded" | "flat"
     desired_w: np.ndarray
     to_add: np.ndarray
     to_remove: np.ndarray
@@ -133,42 +180,91 @@ class WholeFleetPlanner:
     Always a FULL repack+replan, pure over its inputs; the ORACLE that
     the incremental planner must bit-match, and the one-shot path for
     callers without resident state.  Runs on ``device`` (default the
-    card; ``"cpu"`` only when asked).
+    world's, else the card; ``"cpu"`` only when asked).  ``world`` (of
+    :func:`~.distributed.join_world`; default a world of one) gives the
+    ranks a fleet of several shards is laid over: every rank of it calls
+    :meth:`plan` together and gets the whole result.
     """
 
     def __init__(self, model=None, params=None, seed: int = 0,
-                 device: Device = "cuda"):
-        self.device = resolve_device(device)
+                 device: Optional[Device] = None,
+                 world: Optional[World] = None):
+        if world is not None and device is not None \
+                and resolve_device(device) != world.device:
+            raise ValueError(f"device {device} is not the world's "
+                             f"{world.device}")
+        self.device = (world.device if world is not None
+                       else resolve_device(device or "cuda"))
+        self.world = world or World(0, 1, self.device, None)
         self.model = model or TrafficPolicyModel()
         self.params = _default_params(self.model, params, seed,
                                       self.device)
         self._fn = make_fleet_pass(self.model)
+        self._meshes: Dict[int, Optional[Mesh]] = {}
+        self._passes: Dict[int, object] = {}
+
+    def _mesh_for(self, shards: int) -> Tuple[bool, Optional[Mesh]]:
+        """(sharded, mesh): a ``("data" = shards, "model" = 1)`` mesh when
+        the world has the ranks for it, else the flat layout; ``mesh`` is
+        None on a rank outside it.  Made collectively on first use."""
+        if shards <= 1 or shards > self.world.size:
+            return False, None
+        if shards not in self._meshes:
+            self._meshes[shards] = make_mesh(
+                self.world, ("data", "model"),
+                shape={"data": shards, "model": 1})
+        return True, self._meshes[shards]
 
     def prepare(self, fleet: ColumnarFleet):
         """The device pass and its argument tensors for ``fleet``:
         ``(fn, rows, rest)`` with the pass invoked as
-        ``fn(params, rows, *rest)``."""
-        rows, seg, slot = fleet.flat_rows()
-        desired, observed, observed_w, cached_w, mode, spec_w = \
-            fleet.flat_grids()
+        ``fn(params, rows, *rest)``; in the sharded layout, this rank's
+        pass over its own shard."""
+        sharded, mesh = self._mesh_for(fleet.shards)
+        if not sharded:
+            rows, seg, slot = fleet.flat_rows()
+            grids = fleet.flat_grids()
+            rescored, fn = fleet.rescored.reshape(-1), self._fn
+        elif mesh is None:
+            raise ValueError(f"rank {self.world.rank} lies outside the "
+                             f"{fleet.shards}-shard mesh: no shard of its "
+                             f"own to plan")
+        else:
+            r = mesh.coords["data"]
+            rows, seg, slot = (fleet.feat_rows[r], fleet.row_seg[r],
+                               fleet.row_slot[r])
+            grids = tuple(a[r] for a in (
+                fleet.desired, fleet.observed, fleet.observed_w,
+                fleet.cached_w, fleet.weight_mode, fleet.spec_w))
+            rescored = fleet.rescored[r]
+            if fleet.shards not in self._passes:
+                self._passes[fleet.shards] = make_fleet_pass(self.model,
+                                                             mesh)
+            fn = self._passes[fleet.shards]
+        desired, observed, observed_w, cached_w, mode, spec_w = grids
         rest = tuple(_to_device(a, self.device) for a in (
-            seg, slot, desired, observed, observed_w, cached_w,
-            fleet.rescored.reshape(-1), mode, spec_w))
-        return self._fn, _to_device(rows, self.device), rest
+            seg, slot, desired, observed, observed_w, cached_w, rescored,
+            mode, spec_w))
+        return fn, _to_device(rows, self.device), rest
 
     def plan(self, fleet: ColumnarFleet) -> FleetPlanResult:
         """One whole-fleet pass; outputs copied back to the host."""
-        fn, rows, rest = self.prepare(fleet)
         S, Gs, E = fleet.desired.shape
-        desired_w, to_add, to_remove, to_reweight, stats = (
-            t.cpu().numpy() for t in fn(self.params, rows, *rest))
-        shape = (S, Gs, E)
+        sharded, mesh = self._mesh_for(fleet.shards)
+        if not sharded:
+            fn, rows, rest = self.prepare(fleet)
+            desired_w, to_add, to_remove, to_reweight, stats = (
+                t.cpu().numpy() for t in fn(self.params, rows, *rest))
+            planes = (desired_w, to_add, to_remove, to_reweight)
+        else:
+            planes, stats = self._plan_sharded(fleet, mesh)
+        desired_w, to_add, to_remove, to_reweight = (
+            p.reshape(S, Gs, E) for p in planes)
         return FleetPlanResult(
-            fleet=fleet, device=str(self.device), layout="flat",
-            desired_w=desired_w.reshape(shape),
-            to_add=to_add.reshape(shape),
-            to_remove=to_remove.reshape(shape),
-            to_reweight=to_reweight.reshape(shape),
+            fleet=fleet, device=str(self.device),
+            layout="sharded" if sharded else "flat",
+            desired_w=desired_w, to_add=to_add, to_remove=to_remove,
+            to_reweight=to_reweight,
             stats={
                 "adds": float(stats[STAT_ADDS]),
                 "removes": float(stats[STAT_REMOVES]),
@@ -177,6 +273,31 @@ class WholeFleetPlanner:
                 "rescored_groups": float(stats[STAT_RESCORED]),
                 "groups": float(fleet.total_groups),
             })
+
+    def _plan_sharded(self, fleet: ColumnarFleet, mesh: Optional[Mesh]):
+        """Each rank of the mesh plans its shard; the shards' planes are
+        gathered over the data axis (staged through the host: the port's
+        ``out_specs=P("data")``), and a world larger than the mesh gets
+        them from rank 0.  Returns the numpy planes ``[S, Gs, E]`` (int32
+        weights, bool masks) and the ring's stats."""
+        S, Gs, E = fleet.desired.shape
+        if mesh is not None:
+            fn, rows, rest = self.prepare(fleet)
+            *planes, stats = fn(self.params, rows, *rest)
+            local = torch.stack([p.to(torch.int32) for p in planes])
+            whole = mesh.groups["data"].all_gather(local)
+        else:           # what rank 0 broadcasts: the shapes and types
+            whole = torch.empty((S, 4, Gs, E), dtype=torch.int32,
+                                device=self.device)
+            stats = torch.empty(STAT_RESCORED + 1, dtype=torch.float32,
+                                device=self.device)
+        if S < self.world.size:
+            everyone = Group(range(self.world.size), self.world.rank)
+            whole, stats = everyone.broadcast(whole), everyone.broadcast(
+                stats)
+        planes = whole.transpose(0, 1).cpu().numpy()
+        return ((planes[0], planes[1].astype(bool), planes[2].astype(bool),
+                 planes[3].astype(bool)), stats.cpu().numpy())
 
     def plan_groups(self, groups: Sequence[GroupState],
                     endpoints_cap: int = 16,

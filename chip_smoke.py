@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's weight-planning, temporal, training and
-sequence-sharded paths on one NVIDIA GPU.
+"""Drive the PyTorch port's weight-planning, temporal, training,
+sequence-sharded and sharded whole-fleet paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -79,24 +79,41 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
     (``kernels/chip_checks.py ring``): ``make_ring_attention(local=
     "flash", causal=True)`` and its gradients against the dense
     ``attention_reference`` on the gathered inputs;
-17. holds every kernel against its plain PyTorch version on the card, at
+17. plans phase 2's fleet (16384 groups, cap 16) in the sharded
+    whole-fleet layout on 4 ranks on the one card
+    (``kernels/chip_checks.py fleet_sharded``: ``WholeFleetPlanner(world=
+    ...)``, 4 shards, the fleet-plan bench leg's 8 cut to the world's 4):
+    each rank plans its shard (K3's row entry and K2 once a pass), the
+    stats cross the ranks through the stats ring (K5, 4 launches a
+    pass: 3 hops of peer stores and the closing add, staging nothing
+    through the host), the shards' plans are gathered; every rank's
+    result must equal, bit for bit, the flat pass on the card, and the
+    same command on 4 CPU ranks by the card-vs-CPU law of phase 2;
+18. plans phase 3's fleet size (1,000,000 groups, cap 4) the same way
+    over 4 shards, held to the flat pass on the card and timed beside it;
+19. holds every kernel against its plain PyTorch version on the card, at
     the shapes the paths give it and at widths past one tile (K3 at
     H = 256, the flash kernels at D = 160), and times both (and, where
     one exists, a PyTorch call computing the same function; for K9 also
     K7 + K8 on its inputs; for K6b-ring also at Tq != Tk, the zigzag
-    ring's half blocks); then times the flash kernel against the dense
-    reference attention at short windows (the ``FLASH_MIN_WINDOW``
-    crossover).
+    ring's half blocks); K5 on 4 ranks on the card (``fleet_sharded
+    --ring-only``): 200 reduces back to back, each of its own vectors,
+    bit for bit against the plain ring on the CPU among the same ranks,
+    and a ring one hop short must be caught; then times the flash kernel
+    against the dense reference attention at short windows (the
+    ``FLASH_MIN_WINDOW`` crossover).
 
-Before each of phases 1-16 every launch count is set to 0; after each
+Before each of phases 1-18 every launch count is set to 0; after each
 the script fails unless every kernel that phase runs was launched (and,
 for the flash and head kernels, launched exactly as often as the path
 calls them: K9 only in phases 9 and 10, the head kernels only in phase
-12, K6b-ring only in phases 13, 14 and 16).  Phase 3 reads its counts
+12, K6b-ring only in phases 13, 14 and 16, K5 only in phases 17 and
+18).  Phase 3 reads its counts
 after the last churn wave, demands that the churn waves alone launched
 each of their kernels, and reports the full repack's launches apart.
-Phases 13, 15 and 16 run their ranks as processes of their own, each
-starting from no launches, and count the launches of every rank.
+Phases 13, 15-18 run their ranks as processes of their own, each
+starting from no launches, and count the launches of every rank
+(phases 17 and 18: of each rank's timed pass, zeroed just before it).
 
 Output: the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -185,6 +202,12 @@ SHARDED_CPU_GROUPS = 16
 #: the reference's law for a sharded plan (tests/test_sharded_temporal
 #: .py:54-61): no cell off by more than 1, at least this share equal
 SHARDED_PLAN_EQUAL = 0.9
+
+
+#: the stats ring's launch-count name, and the [5] fleet stats it reduces
+K5, STATS = "stats_ring", 5
+#: K5's back-to-back reduces in its check
+RING_PASSES = 200
 
 
 class SmokeError(RuntimeError):
@@ -1869,17 +1892,156 @@ def phase_ring_attention(device: str, ranks: int = SHARDED_RANKS,
             "launches": {K6B_RING: total} if total else {}}
 
 
-def _compare_fleet(name, got, want):
+def _load_plan(path):
     import numpy as np
 
-    check(np.array_equal(got.to_add, want.to_add)
-          and np.array_equal(got.to_remove, want.to_remove),
+    with np.load(path) as z:
+        return {k: z[k] for k in ("desired_w", "to_add", "to_remove",
+                                  "to_reweight")}, json.loads(
+                                      str(z["stats"]))
+
+
+def _sharded_fleet_argv(device, kind, groups, cap, out):
+    return [f"{PKG}.kernels.chip_checks", "fleet_sharded", "--device",
+            device, "--fleet", kind, "--groups", str(groups), "--cap",
+            str(cap), "--out", str(out)]
+
+
+def _check_sharded_ranks(name, out, on_card):
+    """Each rank's timed pass: K5 ``launches_per_pass`` times, K2 and K3's
+    row entry once (on the card; none on the CPU)."""
+    want = ({K5: out["launches_per_pass"], "plan_weights": 1,
+             "fused_mlp_scores": 1} if on_card else {})
+    for r in out["ranks"]:
+        check(r["launches"] == want, f"{name}: rank {r['rank']} launched "
+              f"{r['launches']} in a pass, not {want}")
+        check(r["equal_to_flat"] and r["layout"] == "sharded",
+              f"{name}: rank {r['rank']} is not the flat pass's plan")
+
+
+def phase_fleet_sharded(device: str, ranks: int = SHARDED_RANKS,
+                        kind: str = "bench", groups: int = FLEET_GROUPS,
+                        cap: int = FLEET_CAP, against_cpu: bool = True,
+                        launch_counts=None) -> dict:
+    """The sharded whole-fleet pass on ``ranks`` ranks on one card
+    (``chip_checks.py fleet_sharded``, which holds every rank to its flat
+    pass on the card bit for bit, and fails on a miss); with
+    ``against_cpu``, the same command on as many CPU ranks, held to the
+    card's by the card-vs-CPU law of :func:`phase_fleet` and its stats.
+    The launches are the ranks' timed passes'."""
+    import tempfile
+
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        card_npz, cpu_npz = Path(tmp) / "card.npz", Path(tmp) / "cpu.npz"
+        out, ms, _ = run_ranks(ranks, _sharded_fleet_argv(
+            _rank_device(device), kind, groups, cap, card_npz))
+        on_card = device == "cuda"
+        _check_sharded_ranks("fleet_sharded", out, on_card)
+        rec = {"phase": "fleet_sharded" if kind == "bench"
+               else "fleet_sharded_resident",
+               **{k: out[k] for k in ("device", "world", "fleet", "groups",
+                                      "endpoints_cap", "shards",
+                                      "groups_per_shard", "pack_s",
+                                      "stats", "gather_staged_bytes",
+                                      "launches_per_pass")},
+               "ms": ms,
+               "plan_ms_by_rank": [r["plan_ms"] for r in out["ranks"]],
+               "flat_ms_by_rank": [r["flat_ms"] for r in out["ranks"]],
+               "prepare_ms_by_rank": [r["prepare_ms"]
+                                      for r in out["ranks"]],
+               "device_pass_ms_by_rank": [r["device_pass_ms"]
+                                          for r in out["ranks"]],
+               "staged_bytes_by_rank": [r["plan_staged_bytes"]
+                                        for r in out["ranks"]],
+               "peer_bytes_by_rank": [r["plan_peer_bytes"]
+                                      for r in out["ranks"]],
+               "launches": _rank_launches(out)}
+        if against_cpu:
+            cpu, cpu_ms, _ = run_ranks(ranks, _sharded_fleet_argv(
+                "cpu", kind, groups, cap, cpu_npz))
+            got, got_stats = _load_plan(card_npz)
+            want, want_stats = _load_plan(cpu_npz)
+            err, frac = _compare_planes("fleet_sharded vs cpu", got, want)
+            same = {k: v for k, v in got_stats.items() if k != "reweights"}
+            check(same == {k: v for k, v in want_stats.items()
+                           if k != "reweights"}
+                  and (err > 0 or got_stats == want_stats),
+                  f"fleet_sharded vs cpu: stats {got_stats} against "
+                  f"{want_stats}")
+            rec.update(cpu_ms=cpu_ms, cpu_plan_ms_by_rank=[
+                r["plan_ms"] for r in cpu["ranks"]],
+                max_abs_err_vs_cpu=err, mismatch_frac_vs_cpu=frac)
+    return rec
+
+
+def phase_fleet_sharded_resident(device: str, ranks: int = SHARDED_RANKS,
+                                 groups: int = RESIDENT_GROUPS,
+                                 cap: int = RESIDENT_CAP,
+                                 launch_counts=None) -> dict:
+    """:func:`phase_fleet_sharded` at the resident phase's fleet size,
+    held to the flat pass on the card only."""
+    return phase_fleet_sharded(device, ranks, "resident", groups, cap,
+                               against_cpu=False)
+
+
+def _k5(device: str = "cuda", ranks: int = SHARDED_RANKS,
+        passes: int = RING_PASSES) -> dict:
+    """Kernel K5's record: ``chip_checks.py fleet_sharded --ring-only`` on
+    ``ranks`` ranks (which fails on a sum that differs from the plain
+    ring's or the hop order's, or a short ring that goes unnoticed).  Its
+    times are rank 0's, per reduce pass of the [5] stats: ``ms`` the
+    ring's (hops, synchronises, host barriers), ``plain_ms`` the plain
+    ring's over gloo on CPU tensors, ``library_ms`` gloo's
+    ``all_reduce`` of the card's vector (staged; NCCL refuses two ranks
+    on one card); one hop launch's device and eager ms beside them.  The
+    bound: every rank's [5] read once and its sum written once."""
+    out, ms, _ = run_ranks(ranks, [
+        f"{PKG}.kernels.chip_checks", "fleet_sharded", "--ring-only",
+        "--device", _rank_device(device), "--passes", str(passes)])
+    r0 = out["ranks"][0]
+    n = out["world"]
+    rec = _record(
+        K5, f"{SRC}/stats_ring.cu",
+        f"{REF}/parallel/fleet_plan.py:130",
+        f"[{STATS}] f32 over {n} ranks on one card, a reduce pass",
+        max(r["max_abs_err_vs_plain"] for r in out["ranks"]), 0.0,
+        {"ms": r0["pass_ms"], "plain_ms": r0["plain_pass_ms"],
+         "library_ms": r0.get("gloo_all_reduce_ms")},
+        bound_ms(2 * n * STATS * 4, 0, F32_FLOP_PER_S))
+    rec.update(
+        library="torch.distributed.all_reduce over gloo, staged through "
+                "the host (NCCL: none, it refuses two ranks on one card)",
+        hop_device_ms=r0.get("hop_device_ms"),
+        hop_eager_ms=r0.get("hop_eager_ms"),
+        launches_per_pass=out["launches_per_pass"], passes=passes,
+        time_is="host barriers, stream synchronises and launches, not "
+                "bytes", wall_ms=ms,
+        pass_ms_by_rank=[r["pass_ms"] for r in out["ranks"]])
+    return rec
+
+
+def _compare_planes(name, got: dict, want: dict):
+    """Memberships exact; weights by the card-vs-CPU law; to_reweight may
+    differ only where the weights do."""
+    import numpy as np
+
+    check(np.array_equal(got["to_add"], want["to_add"])
+          and np.array_equal(got["to_remove"], want["to_remove"]),
           f"{name}: memberships differ")
-    err, frac = check_weights(name, got.desired_w, want.desired_w)
-    differ = got.desired_w != want.desired_w
-    check(not bool(((got.to_reweight != want.to_reweight) & ~differ).any()),
+    err, frac = check_weights(name, got["desired_w"], want["desired_w"])
+    differ = got["desired_w"] != want["desired_w"]
+    check(not bool(((got["to_reweight"] != want["to_reweight"])
+                    & ~differ).any()),
           f"{name}: to_reweight differs where the weights agree")
     return err, frac
+
+
+def _compare_fleet(name, got, want):
+    planes = ("desired_w", "to_add", "to_remove", "to_reweight")
+    return _compare_planes(name, {k: getattr(got, k) for k in planes},
+                           {k: getattr(want, k) for k in planes})
 
 
 def phase_fleet(device: str, groups: int = FLEET_GROUPS,
@@ -2129,7 +2291,22 @@ def main() -> int:
              (), {K6B_RING: 0, **no_flash}),
             ("ring_attention",
              lambda c: phase_ring_attention("cuda", launch_counts=c),
-             (K6B_RING,), {K6B_RING: sum(range(1, SHARDED_RANKS + 1))}))
+             (K6B_RING,), {K6B_RING: sum(range(1, SHARDED_RANKS + 1))}),
+            # each rank's timed pass: K5 4 times (3 hops, the closing
+            # add), K3's row entry and K2 once (checked rank by rank)
+            ("fleet_sharded",
+             lambda c: phase_fleet_sharded("cuda", launch_counts=c),
+             (K5, "plan_weights", "fused_mlp_scores"),
+             {K5: SHARDED_RANKS * SHARDED_RANKS,
+              "plan_weights": SHARDED_RANKS,
+              "fused_mlp_scores": SHARDED_RANKS, **no_flash}),
+            ("fleet_sharded_resident",
+             lambda c: phase_fleet_sharded_resident("cuda",
+                                                    launch_counts=c),
+             (K5, "plan_weights", "fused_mlp_scores"),
+             {K5: SHARDED_RANKS * SHARDED_RANKS,
+              "plan_weights": SHARDED_RANKS,
+              "fused_mlp_scores": SHARDED_RANKS, **no_flash}))
     for name, fn, expect, exact in path:
         t0 = time.perf_counter()
         counts = run_path_phase(name, fn, expect, build, records, exact)
@@ -2140,6 +2317,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = phase_kernels()
+    kernels.append(_k5())
     log(json.dumps(phase_flash_crossover()))
     log(json.dumps({"phase": "kernels",
                     "seconds": time.perf_counter() - t0}))

@@ -162,3 +162,36 @@ def test_ring_attention_phase_rehearses_on_cpu():
     assert out["world"] == 4 and out["launches"] == {}
     assert out["o_ulps_of_magnitude_vs_dense"] <= 2
     assert max(out["grad_ulps_of_head_max_vs_dense"].values()) <= 4
+
+
+def test_fleet_sharded_phase_rehearses_on_cpu():
+    """Four CPU ranks plan the sharded whole-fleet layout, each held to its
+    flat pass bit for bit, and to the same command's four CPU ranks."""
+    out = chip_smoke.phase_fleet_sharded("cpu", groups=256, cap=16)
+    assert (out["phase"], out["world"], out["shards"]) == (
+        "fleet_sharded", 4, 4)
+    assert out["launches"] == {} and out["launches_per_pass"] == 4
+    assert out["max_abs_err_vs_cpu"] == 0
+    assert out["staged_bytes_by_rank"] == [0] * 4
+    assert out["stats"]["groups"] == 256.0
+
+
+def test_fleet_sharded_resident_phase_rehearses_on_cpu():
+    out = chip_smoke.phase_fleet_sharded_resident("cpu", groups=2000, cap=4)
+    assert (out["phase"], out["fleet"], out["endpoints_cap"]) == (
+        "fleet_sharded_resident", "resident", 4)
+    assert out["launches"] == {} and "max_abs_err_vs_cpu" not in out
+    assert out["stats"]["rescored_groups"] == 2000.0
+
+
+def test_stats_ring_record_rehearses_on_cpu():
+    """K5's row from four CPU ranks: the plain ring against itself and the
+    hop order's numpy sums; no card, so no hop or library time."""
+    rec = chip_smoke._k5("cpu", passes=20)
+    assert (rec["name"], rec["route"], rec["bound_by"]) == (
+        "stats_ring", "cuda", "bytes")
+    assert rec["source"].endswith("csrc/stats_ring.cu")
+    assert rec["replaces"].endswith("parallel/fleet_plan.py:130")
+    assert rec["max_abs_err"] == 0.0 and rec["launches_per_pass"] == 4
+    assert rec["library_ms"] is None and rec["hop_device_ms"] is None
+    assert rec["bound_ms"] == 2 * 4 * 5 * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3

@@ -819,3 +819,48 @@ def test_ring_of_two_ranks_on_one_card(cuda):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["launches_by_seq_rank"] == {"0": 1, "1": 2}
     assert out["staged_bytes_rank0"] > 0
+
+
+def _chip_checks(cuda, ranks, *argv):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(ranks), "-m",
+         "aws_global_accelerator_controller_tpu_torch.kernels.chip_checks",
+         *argv, "--device", f"cuda:{cuda.index}"], cwd=root,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_stats_ring_on_ranks_of_one_card(cuda, ranks):
+    """Kernel K5 on 2 ranks (left and right neighbour the same rank) and 3:
+    every sum bit for bit the plain ring's and the hop order's, n
+    launches a pass, nothing staged, a ring one hop short caught
+    (``chip_checks.py fleet_sharded --ring-only`` exits non-zero on a
+    miss)."""
+    out = _chip_checks(cuda, ranks, "fleet_sharded", "--ring-only",
+                       "--passes", "50")
+    assert out["world"] == ranks and out["errors"] == []
+    for r in out["ranks"]:
+        assert r["launches"] == 50 * ranks and r["staged_bytes"] == 0
+        assert r["peer_bytes"] == 50 * (ranks - 1) * 5 * 4
+        assert r["equal_to_plain"] and r["skipped_hop_caught"]
+
+
+def test_sharded_whole_fleet_on_two_ranks_of_one_card(cuda):
+    """The sharded whole-fleet pass on 2 ranks of one card, each rank held
+    to its flat pass bit for bit; only the plan's gather is staged."""
+    out = _chip_checks(cuda, 2, "fleet_sharded", "--groups", "2000")
+    assert (out["world"], out["shards"], out["errors"]) == (2, 2, [])
+    for r in out["ranks"]:
+        assert r["launches"] == {"stats_ring": 2, "plan_weights": 1,
+                                 "fused_mlp_scores": 1}
+        assert r["device_pass_staged_bytes"] == 0
+        assert r["plan_staged_bytes"] == out["gather_staged_bytes"] > 0

@@ -31,6 +31,8 @@ from aws_global_accelerator_controller_tpu_torch import parity
 from aws_global_accelerator_controller_tpu_torch.models.convert import (
     params_from_jax,
 )
+from aws_global_accelerator_controller_tpu_torch.parallel.distributed \
+    import World
 from aws_global_accelerator_controller_tpu_torch.parallel.fleet import (
     make_row_splice,
     row_splice,
@@ -40,6 +42,9 @@ from aws_global_accelerator_controller_tpu_torch.parallel.fleet_plan import (
     STAT_REMOVES,
     WholeFleetPlanner,
     make_fleet_pass,
+)
+from aws_global_accelerator_controller_tpu_torch.parallel.mesh import (
+    make_mesh,
 )
 from aws_global_accelerator_controller_tpu_torch.reconcile import (
     columnar as tcol,
@@ -164,8 +169,14 @@ def test_pad_rows_are_dropped():
     for a, b in zip(base, padded):
         assert torch.equal(a, b)
     assert base[4][STAT_ADDS] == 0 and base[4][STAT_REMOVES] == 0
-    with pytest.raises(NotImplementedError):
-        make_fleet_pass(planner.model, mesh=object())
+    # a mesh of one rank (data 1 x model 1): the sharded pass is the flat
+    one = make_mesh(World(0, 1, torch.device("cpu"), None),
+                    ("data", "model"), shape={"data": 1, "model": 1})
+    sharded = make_fleet_pass(planner.model, mesh=one)(
+        planner.params, rows, seg, slot, desired, observed, observed_w,
+        cached, rescored, mode, spec_w)
+    for a, b in zip(base, sharded):
+        assert torch.equal(a, b)
 
 
 def splice_case(seed, S=5, cap=7, E=4, K=6):

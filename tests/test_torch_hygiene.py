@@ -49,15 +49,21 @@ from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     forward_cuda,
     score_rows_cuda,
 )
+from aws_global_accelerator_controller_tpu_torch.ops.cuda_ring import (
+    stats_ring_cuda,
+)
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_weights import (
     plan_weights_cuda,
 )
+from aws_global_accelerator_controller_tpu_torch.parallel.distributed \
+    import Group
 from aws_global_accelerator_controller_tpu_torch.parallel.fleet import (
     row_splice,
 )
 from aws_global_accelerator_controller_tpu_torch.parallel.fleet_plan import (
     ResidentFleetPlanner,
     WholeFleetPlanner,
+    _make_stats_ring,
 )
 from aws_global_accelerator_controller_tpu_torch.reconcile.resident import (
     ResidentFleet,
@@ -185,6 +191,8 @@ def test_kernel_wrappers_refuse_other_devices():
         flash_attention(*(x.requires_grad_(True) for x in (
             torch.empty((64, 2, 16), dtype=torch.bfloat16, **meta)
             for _ in range(3))))
+    with pytest.raises(ValueError, match="CUDA"):
+        stats_ring_cuda(None, torch.empty(5, **meta))
     with pytest.raises(ValueError):
         plan_weights_cuda(torch.zeros((2, 2)), m)   # mixed devices
 
@@ -218,12 +226,14 @@ def test_cpu_calls_build_and_launch_nothing():
                                  supervision="sequence", head="fused_always")
     fused.train_step(tparams, fused.init_opt_state(tparams), window, wbatch)
     model.train_step(params, model.init_opt_state(params), batch)
+    _make_stats_ring(Group([0], 0), "cpu")(torch.ones(5))
     counts = build.launch_counts()
     assert set(counts) >= {"probe_double", "plan_weights", "fused_mlp_plan",
                            "fused_mlp_scores", "row_splice",
                            "flash_attention", "flash_attention_stats",
                            "flash_bwd_dq", "flash_bwd_dkv", "score_head_fwd",
-                           "score_head_bwd", "flash_attention_stats_ring"}
+                           "score_head_bwd", "flash_attention_stats_ring",
+                           "stats_ring"}
     assert not any(counts.values())
     if not torch.cuda.is_available():
         assert build._library is None

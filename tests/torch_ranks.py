@@ -230,7 +230,86 @@ def sharded_suite(inputs: dict, world) -> dict:
     return out
 
 
-SUITES = {"ring": ring_suite, "sharded": sharded_suite}
+def _group_states(specs):
+    from aws_global_accelerator_controller_tpu_torch.reconcile.columnar \
+        import GroupState
+
+    return [GroupState(**{**s, "features": None if s["features"] is None
+                          else s["features"].numpy()}) for s in specs]
+
+
+def _plan_out(desired_w, to_add, to_remove, to_reweight, stats) -> dict:
+    return {"desired_w": torch.as_tensor(desired_w),
+            "to_add": torch.as_tensor(to_add),
+            "to_remove": torch.as_tensor(to_remove),
+            "to_reweight": torch.as_tensor(to_reweight), "stats": stats}
+
+
+def _skip_a_hop(group, x: torch.Tensor) -> torch.Tensor:
+    """A faulty ring, for the test to catch: one hop fewer than n - 1."""
+    acc = blk = x
+    for _ in range(group.size - 2):
+        (blk,) = group.shift(blk)
+        acc = acc + blk
+    return acc
+
+
+def fleet_suite(inputs: dict, world) -> dict:
+    """``ring``: the stats ring's plain version on a data axis of each
+    size of ``inputs["ring"]["sizes"]`` (rank i reducing tile i), and a
+    ring that skips a hop; ``fleets``: each fleet through
+    ``WholeFleetPlanner(world=...)`` (every rank plans; shards > 1 lay
+    out over the first ``shards`` ranks); ``mesh22``: the sharded pass
+    of ``make_fleet_pass`` on a data 2 x model 2 mesh, rank (d, m) on
+    shard d, its own outputs."""
+    from aws_global_accelerator_controller_tpu_torch.models.traffic import (
+        TrafficPolicyModel,
+    )
+    from aws_global_accelerator_controller_tpu_torch.parallel.fleet_plan \
+        import WholeFleetPlanner, _make_stats_ring, make_fleet_pass
+    from aws_global_accelerator_controller_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from aws_global_accelerator_controller_tpu_torch.reconcile.columnar \
+        import pack_fleet
+
+    out = {"rank": world.rank, "ring": {}, "ring_skip": {}, "fleets": {}}
+    tiles = inputs["ring"]["tiles"]
+    for n in inputs["ring"]["sizes"]:
+        mesh = make_mesh(world, ("data",), shape={"data": n})
+        if mesh is None:
+            continue
+        group = mesh.groups["data"]
+        tile = tiles[group.index]
+        out["ring"][n] = _make_stats_ring(group, "cpu")(tile)
+        out["ring_skip"][n] = _skip_a_hop(group, tile)
+    model = TrafficPolicyModel()
+    params = inputs["params"]
+    planner = WholeFleetPlanner(model=model, params=params, world=world)
+    for case in inputs["fleets"]:
+        fleet = pack_fleet(_group_states(case["specs"]),
+                           endpoints_cap=case["cap"], shards=case["shards"])
+        res = planner.plan(fleet)
+        out["fleets"][case["name"]] = {
+            "layout": res.layout,
+            **_plan_out(res.desired_w, res.to_add, res.to_remove,
+                        res.to_reweight, res.stats)}
+    case = inputs["mesh22"]
+    mesh = make_mesh(world, ("data", "model"),
+                     shape={"data": 2, "model": 2})
+    fleet = pack_fleet(_group_states(case["specs"]),
+                       endpoints_cap=case["cap"], shards=2)
+    r = mesh.coords["data"]
+    args = [torch.from_numpy(a[r].copy()) for a in (
+        fleet.feat_rows, fleet.row_seg, fleet.row_slot, fleet.desired,
+        fleet.observed, fleet.observed_w, fleet.cached_w, fleet.rescored,
+        fleet.weight_mode, fleet.spec_w)]
+    got = make_fleet_pass(model, mesh)(params, *args)
+    out["mesh22"] = {"coords": mesh.coords, **_plan_out(*got)}
+    return out
+
+
+SUITES = {"ring": ring_suite, "sharded": sharded_suite, "fleet": fleet_suite}
 
 
 def main() -> int:
