@@ -4,7 +4,8 @@ one build, and a profile of the train step.
 ``ab TREE_A TREE_B``: device times of K3 (both entries, H = 128 and 256),
 of K10 and K11 (the train command's default shape and the reference's
 own head shape) and of K9 (32 heads at T = 64, 1024 and 1536 with
-D = 32, and at T = 256 and 2048 with D = 128) in two checkouts, each in a fresh process
+D = 32, at T = 256 and 2048 with D = 128, and at T = 1024 with
+D = 160, two column chunks) in two checkouts, each in a fresh process
 with its own build, in the order A, B, B, A, so that a drift of the
 card's clock over the run falls on both alike.  This is how two
 versions of a kernel are compared.
@@ -20,14 +21,18 @@ changes the result:
   partial; ``first_tile_only``, each CTA adds only its first row tile
   into dw1, db1 and dw2; ``zero_weight_grads``, the weight gradients
   come out zero;
-- K9 (the card tests of the fused backward, T up to 200 and T = 2048;
-  ``chip_smoke.py`` at T = 2048 and T = 1024, which have
-  several K blocks, and at T = 64 where the fault touches one):
+- K9 (the card tests of the fused backward, T up to 200, and T = 1024
+  and 2048 where the dq chains are longest; ``chip_smoke.py`` at
+  T = 2048 and T = 1024, which have several K blocks, and at T = 64
+  where the fault touches one):
   ``dq_skips_k_block_0``, dq misses the contribution of K block 0;
   ``dkv_first_q_block_only``, dk and dv sum over the first live q
   block only (no change where T has one block);
   ``dq_last_block_unscaled``, the last q block's dq is not scaled by
-  D**-0.5.
+  D**-0.5; ``dq_skips_its_wait``, a visit reads its dq accumulator
+  without waiting for the chain's counter (no change where T has one
+  block); ``ticket_map_drops_last_k_block``, the tiles of the last K
+  block end at once, leaving its dk, dv and some dq rows unwritten.
 
 ``profile``: ``torch.profiler`` over ``--steps`` (3) sequence-supervised
 train steps of the temporal model, by default at the train command's
@@ -143,7 +148,7 @@ for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
     out["score_head_bwd " + shape] = cs.time_device(
         lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))
 for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
-                (256, 32, 128), (2048, 32, 128)):
+                (256, 32, 128), (2048, 32, 128), (1024, 32, 160)):
     g = torch.Generator(device="cuda").manual_seed(15)
     q, k, v, do = (torch.randn(T, S, D, device="cuda", generator=g)
                    .to(torch.bfloat16) for _ in range(4))
@@ -190,25 +195,34 @@ FAULTS = {
     "zero_weight_grads": (_HEAD_SRC, "  out[e] = s;", "  out[e] = 0.f;"),
     "dq_skips_k_block_0": (
         _DQKV_SRC,
-        "          mma_kn(acc, dsa[kk], ks, kStride, nt * 8, kk);",
-        "          if (kb > 0) mma_kn(acc, dsa[kk], ks, kStride, nt * 8, "
+        "        mma_kn(acc[nt], dsa[kk], ks, kStride, nt * 8, kk);",
+        "        if (kb > 0) mma_kn(acc[nt], dsa[kk], ks, kStride, nt * 8, "
         "kk);"),
     "dkv_first_q_block_only": (
         _DQKV_SRC,
-        "            mma_kn(dva[nt], pa, dos, kStride, nt * 8, kq);\n"
-        "            mma_kn(dka[nt], dsa, qs, kStride, nt * 8, kq);",
-        "            if (qb == (causal ? kb : 0)) {\n"
-        "            mma_kn(dva[nt], pa, dos, kStride, nt * 8, kq);\n"
-        "            mma_kn(dka[nt], dsa, qs, kStride, nt * 8, kq);\n"
-        "            }"),
+        "          mma_kn(dva[nt], pa, dos, kStride, nt * 8, kq);\n"
+        "          mma_kn(dka[nt], dsa, qs, kStride, nt * 8, kq);",
+        "          if (qb == (causal ? kb : 0)) {\n"
+        "          mma_kn(dva[nt], pa, dos, kStride, nt * 8, kq);\n"
+        "          mma_kn(dka[nt], dsa, qs, kStride, nt * 8, kq);\n"
+        "          }"),
     "dq_last_block_unscaled": (
         _DQKV_SRC,
-        "pack_bf16(rows[8 * kDPad * r + col] * scale,\n"
-        "                        rows[8 * kDPad * r + col + 1] * scale);",
-        "pack_bf16(rows[8 * kDPad * r + col] * (qb == n_blocks - 1 ? 1.f : "
-        "scale),\n"
-        "                        rows[8 * kDPad * r + col + 1] * "
-        "(qb == n_blocks - 1 ? 1.f : scale));"),
+        "pack_bf16(\n"
+        "                acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);",
+        "pack_bf16(\n"
+        "                acc[nt][2 * r] * (qb == n_blocks - 1 ? 1.f : scale),\n"
+        "                acc[nt][2 * r + 1] * (qb == n_blocks - 1 ? 1.f : "
+        "scale));"),
+    "dq_skips_its_wait": (
+        _DQKV_SRC,
+        "      if (threadIdx.x == 0) wait_for(counters + slot, kb);",
+        "      // no wait for visit kb - 1"),
+    "ticket_map_drops_last_k_block": (
+        _DQKV_SRC,
+        "  const int kb = t / per_block;",
+        "  const int kb = t / per_block;\n"
+        "  if (kb == n_blocks - 1) return;"),
 }
 #: source -> (card tests (-k), chip_smoke function, its shapes, how many
 #: of them each fault must fail)

@@ -561,9 +561,10 @@ def flash_bwd_dkv(q, k, v, do, m, l, dvec, causal: bool = True
 def flash_bwd_dqkv(q, k, v, do, m, l, dvec, causal: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) [T, H, D] bf16: kernel K9 on CUDA tensors (the checks
-    of :func:`flash_bwd_dq`; an f32 workspace for the heads' dq
-    accumulators),
-    :func:`flash_bwd_dqkv_plain` at :data:`BLOCK_K` on CPU tensors."""
+    of :func:`flash_bwd_dq`; a workspace for the dq accumulators, then
+    the counters of their chains and the tiles' ticket, which the launch
+    zeroes), :func:`flash_bwd_dqkv_plain` at :data:`BLOCK_K` on CPU
+    tensors."""
     if _on_cpu(q, k, v, do, m, l, dvec):
         return flash_bwd_dqkv_plain(q, k, v, do, m, l, dvec, causal)
     D = q.shape[-1]
@@ -588,8 +589,9 @@ def _dqkv_workspace_fn():
 
 
 def _dqkv_workspace_floats(T: int, H: int, Dp: int) -> int:
-    """Floats of K9's dq workspace at these sizes,
-    as the kernel's source computes them."""
+    """Length of K9's f32 workspace at these sizes (its dq accumulators,
+    then the chains' counters and the ticket, 4 bytes each), as the
+    kernel's source computes it."""
     return _dqkv_workspace_fn()(T, H, Dp)
 
 

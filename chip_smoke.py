@@ -858,7 +858,7 @@ def _k9_one(T, S, D, seed, iters=20, eager_iters=50):
     rec["max_ulps_of_magnitude"] = max(e[2] for e in errs)
     rec["max_ulps_of_magnitude_vs_k7_k8"] = max(sweep_ulps)
     rec["bit_identical_to_k7_k8"] = same_as_sweeps
-    rec["dq_workspace_floats"] = ca._dqkv_workspace_floats(
+    rec["workspace_words"] = ca._dqkv_workspace_floats(
         T, S, -(-D // ca.HEAD_DIM_MULTIPLE) * ca.HEAD_DIM_MULTIPLE)
     return rec
 

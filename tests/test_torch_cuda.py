@@ -501,11 +501,67 @@ def test_fused_backward_kernel_with_its_workspace(cuda, causal):
     """K9 at T = 2048, S = 32, D = 128 (a chunk of the production
     temporal shape, which the reference's gate sends to its fused
     kernel): 32 heads' dq accumulators of 1 MiB each in the f32
-    workspace, 32 K blocks a head."""
+    workspace, 32 K blocks a head; after them a chain counter a tile and
+    the ticket."""
     assert fused_bwd_route(2048, 32, 128)
-    assert ca._dqkv_workspace_floats(2048, 32, 128) == 2048 * 128 * 32
-    assert ca._dqkv_workspace_floats(65, 3, 160) == 128 * 128 * 3 * 2
+    assert ca._dqkv_workspace_floats(2048, 32, 128) == (
+        2048 * 128 * 32 + 32 * 32 + 1)
+    assert ca._dqkv_workspace_floats(65, 3, 160) == (
+        128 * 128 * 3 * 2 + 2 * 3 * 2 + 1)
     _fused_backward_matches(cuda, 2048, 32, 128, causal, 3)
+
+
+def _fused_backward_inputs(cuda, T, S, D, causal, seed):
+    q, k, v = _qkv(cuda, T, S, D, seed)
+    do = _qkv(cuda, T, S, D, seed + 1)[0]
+    o, m, l = flash_attention_stats(q, k, v, causal)
+    return q, k, v, do, m, l, attention_dvec(o, do)
+
+
+@pytest.mark.parametrize("T", [1024, 2048])
+@pytest.mark.parametrize("S", [1, 3, 32])
+@pytest.mark.parametrize("D", [32, 128, 160])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_kernel_chains_dq_as_k7_does(cuda, T, S, D, causal):
+    """K9 where its dq chains are longest (16 and 32 K blocks) and most
+    contended (up to 32 heads x 2 column chunks of tiles racing for the
+    same q blocks): dq bit for bit K7's and dk, dv K8's, and 20 calls
+    back to back bit for bit one another."""
+    args = _fused_backward_inputs(cuda, T, S, D, causal, T + 7 * S + D)
+    got = flash_bwd_dqkv(*args, causal)
+    sweeps = (flash_bwd_dq(*args, causal), *flash_bwd_dkv(*args, causal))
+    runs = [flash_bwd_dqkv(*args, causal) for _ in range(20)]
+    torch.cuda.synchronize()
+    for name, g, sw in zip(("dq", "dk", "dv"), got, sweeps):
+        assert torch.equal(g, sw), name
+    for i, run in enumerate(runs):
+        assert all(torch.equal(a, b) for a, b in zip(run, got)), i
+
+
+@pytest.mark.parametrize("T,S,D", [(2048, 32, 128), (1024, 3, 160)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_kernel_replays_in_a_cuda_graph(cuda, T, S, D,
+                                                       causal):
+    """K9 captured in a CUDA graph (its workspace, the memset of its
+    chains' counters and ticket, the launch) and replayed 10 times, the
+    outputs cleared before each replay: every replay bit for bit the
+    eager call, which counters or a ticket left unreset would break."""
+    args = _fused_backward_inputs(cuda, T, S, D, causal, T + S + D)
+    want = flash_bwd_dqkv(*args, causal)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        flash_bwd_dqkv(*args, causal)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_bwd_dqkv(*args, causal)
+    for i in range(10):
+        for x in out:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), i
 
 
 def test_flash_backward_kernels_refuse_what_they_cannot_take(cuda):

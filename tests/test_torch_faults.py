@@ -1,0 +1,31 @@
+"""The planted faults of ``kernels/chip_checks.py faults`` stay armed.
+
+Each fault replaces a text of a kernel's source, and ``faults`` refuses
+to run one whose text is not in that source exactly once, but only on
+the card.  Here, on the CPU, every fault's text must occur exactly once
+in its source, so that a redesign of a kernel cannot silently leave a
+fault with nothing to change.
+"""
+import pytest
+
+from aws_global_accelerator_controller_tpu_torch.kernels.chip_checks import (
+    CHECKS,
+    FAULTS,
+    ROOT,
+)
+
+
+@pytest.mark.parametrize("name", sorted(FAULTS))
+def test_fault_text_occurs_once_in_its_source(name):
+    src, old, new = FAULTS[name]
+    assert src in CHECKS, f"{name}: no card check for {src}"
+    assert old != new
+    assert (ROOT / src).read_text().count(old) == 1, name
+
+
+def test_every_k9_fault_is_planted_in_the_fused_backward():
+    k9 = {name for name, (src, _, _) in FAULTS.items()
+          if src.endswith("csrc/flash_attention_dqkv.cu")}
+    assert k9 == {"dq_skips_k_block_0", "dkv_first_q_block_only",
+                  "dq_last_block_unscaled", "dq_skips_its_wait",
+                  "ticket_map_drops_last_k_block"}
