@@ -3,15 +3,21 @@ one build, and a profile of the train step.
 
 ``ab TREE_A TREE_B``: device times of K3 (both entries, H = 128 and 256),
 of K10 and K11 (the train command's default shape and the reference's
-own head shape) and of K9 (32 heads at T = 64, 1024 and 1536 with
-D = 32, at T = 256 and 2048 with D = 128, and at T = 1024 with
+own head shape), of K6b, K7 and K8 apart (``chip_smoke.py``'s three
+shapes of them: T = 64, S = 8192, D = 32; T = 2048, S = 128, D = 128;
+T = 1024, S = 64, D = 160) and of K9 (32 heads at T = 64, 1024 and 1536
+with D = 32, at T = 256 and 2048 with D = 128, and at T = 1024 with
 D = 160, two column chunks) in two checkouts, each in a fresh process
 with its own build, in the order A, B, B, A, so that a drift of the
-card's clock over the run falls on both alike.  This is how two
-versions of a kernel are compared.
+card's clock over the run falls on both alike.  Each run also prints a
+sha256 of K7's and K8's dq, dk and dv at each of their shapes (each
+taken as ``x.float() + 0.0``, so -0 and +0 hash alike), and ``ab``
+fails unless the four runs give the same digests: the two trees must
+agree value for value.  This is how two versions of a kernel are
+compared.
 
-``faults``: plants faults in K11's weight-gradient sums and in K9's
-sums, each in a copy of this checkout made in a temporary directory,
+``faults``: plants faults in K11's weight-gradient sums, in K9's sums
+and in K7's and K8's pipeline, each in a copy of this checkout made in a temporary directory,
 and demands that the kernel's card tests and ``chip_smoke.py``'s check
 of it fail on every one, the latter at every shape where the fault
 changes the result:
@@ -32,7 +38,17 @@ changes the result:
   D**-0.5; ``dq_skips_its_wait``, a visit reads its dq accumulator
   without waiting for the chain's counter (no change where T has one
   block); ``ticket_map_drops_last_k_block``, the tiles of the last K
-  block end at once, leaving its dk, dv and some dq rows unwritten.
+  block end at once, leaving its dk, dv and some dq rows unwritten;
+- K7 and K8 (the card tests of the two sweeps against K9, T = 1024 and
+  2048 at 128 heads, D from 20 to 288; ``chip_smoke.py``'s check of K6b,
+  K7 and K8 at its three shapes, which holds them to K9 bit for bit):
+  ``dq_prefetch_drops_v``, K7's prefetch of the next K block copies k
+  but not v, so block j computes with v of block j - 2 (no change where
+  T has one block);
+  ``dkv_skips_last_q_block``, K8's walk stops before the last q block;
+  ``wide_head_drops_second_column_half``, in a head wider than 128 the
+  second warpgroup takes no output columns (of the smoke check's shapes,
+  a change at D = 160 only).
 
 ``profile``: ``torch.profiler`` over ``--steps`` (3) sequence-supervised
 train steps of the temporal model, by default at the train command's
@@ -118,9 +134,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 PKG = "aws_global_accelerator_controller_tpu_torch"
 
-# run inside a checkout: prints {row: device ms} of its kernels
+# run inside a checkout: prints {"ms": {row: device ms}, "digests":
+# {shape: sha256 of K7's and K8's outputs}} of its kernels
 _TIME = r"""
-import json, torch, chip_smoke as cs
+import hashlib, json, torch, chip_smoke as cs
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     forward_cuda, score_rows_cuda)
 from aws_global_accelerator_controller_tpu_torch.ops import cuda_head as ch
@@ -147,6 +164,26 @@ for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
         lambda: ch.score_head_forward(x, w1, b1, w2, b2))
     out["score_head_bwd " + shape] = cs.time_device(
         lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))
+digests = {}
+for T, S, D in ((64, 8192, 32), (2048, 128, 128), (1024, 64, 160)):
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(T, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    shape = f"T={T} S={S} D={D}"
+    out["flash_attention_stats " + shape] = cs.time_device(
+        lambda: ca.flash_attention_stats(q, k, v))
+    o, m, l = ca.flash_attention_stats(q, k, v)
+    dvec = ca.attention_dvec(o, do)
+    out["flash_bwd_dq " + shape] = cs.time_device(
+        lambda: ca.flash_bwd_dq(q, k, v, do, m, l, dvec))
+    out["flash_bwd_dkv " + shape] = cs.time_device(
+        lambda: ca.flash_bwd_dkv(q, k, v, do, m, l, dvec))
+    h = hashlib.sha256()
+    for x in (ca.flash_bwd_dq(q, k, v, do, m, l, dvec),
+              *ca.flash_bwd_dkv(q, k, v, do, m, l, dvec)):
+        h.update((x.float() + 0.0).cpu().numpy().tobytes())
+    digests[shape] = h.hexdigest()
+    del q, k, v, do, o, m, l, dvec
 for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
                 (256, 32, 128), (2048, 32, 128), (1024, 32, 160)):
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -156,7 +193,7 @@ for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
     dvec = ca.attention_dvec(o, do)
     out[f"flash_bwd_dqkv T={T} S={S} D={D}"] = cs.time_device(
         lambda: ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec))
-print(json.dumps(out))
+print(json.dumps({"ms": out, "digests": digests}))
 """
 
 # run inside a checkout: a kernel's check in chip_smoke.py at each shape
@@ -177,6 +214,7 @@ raise SystemExit(1 if errors else 0)
 
 _HEAD_SRC = f"{PKG}/csrc/score_head.cu"
 _DQKV_SRC = f"{PKG}/csrc/flash_attention_dqkv.cu"
+_BWD_SRC = f"{PKG}/csrc/flash_attention_bwd.cu"
 #: name -> (source, a text of it once, the faulty replacement)
 FAULTS = {
     "half_partials": (
@@ -223,6 +261,19 @@ FAULTS = {
         "  const int kb = t / per_block;",
         "  const int kb = t / per_block;\n"
         "  if (kb == n_blocks - 1) return;"),
+    "dq_prefetch_drops_v": (
+        _BWD_SRC,
+        "      async_tile<kCta>(next + tile, stride, cols, v, k0 + kBlock, T, S,"
+        " D,\n                       s);\n",
+        "      // v of K block kb + 1 not prefetched\n"),
+    "dkv_skips_last_q_block": (
+        _BWD_SRC,
+        "  for (int qb = first_qb; qb < n_qb; ++qb) {",
+        "  for (int qb = first_qb; qb < n_qb - 1; ++qb) {"),
+    "wide_head_drops_second_column_half": (
+        _BWD_SRC,
+        "  return kWide ? (half ? steps - first : first) : kDPad / 16;",
+        "  return kWide ? (half ? 0 : first) : kDPad / 16;"),
 }
 #: source -> (card tests (-k), chip_smoke function, its shapes, how many
 #: of them each fault must fail)
@@ -232,7 +283,20 @@ CHECKS = {
     _DQKV_SRC: ("fused_backward_kernel", "_k9_one",
                 ((64, 32, 32, 15), (2048, 32, 128, 16),
                  (1024, 32, 160, 17)), 2),
+    _BWD_SRC: ("two_sweep_backward", "_flash_train_rows",
+               ((64, 8192, 32, 9), (2048, 128, 128, 10),
+                (1024, 64, 160, 12)), 2),
 }
+
+
+def _must_fail(name: str, shapes, must_fail: int) -> int:
+    """How many of its source's smoke shapes a fault must fail: the
+    source's count, or every shape the changed code runs at if fewer.  A
+    fault named ``wide_head_*`` changes only heads wider than 128 (the
+    shapes' third entry, D), of which K7's and K8's smoke check has one."""
+    if name.startswith("wide_head_"):
+        return min(must_fail, sum(shape[2] > 128 for shape in shapes))
+    return must_fail
 
 
 def _run(cmd, cwd, timeout=900):
@@ -251,13 +315,20 @@ def ab(tree_a: str, tree_b: str) -> int:
         if r.returncode:
             print(r.stdout, r.stderr[-4000:], file=sys.stderr)
             return 1
-        ms = json.loads(r.stdout.strip().splitlines()[-1])
-        runs.append({"tree": name, "path": tree, "ms": ms})
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        runs.append({"tree": name, "path": tree, **res})
         print(json.dumps(runs[-1]), flush=True)
     mean = {name: {k: sum(r["ms"][k] for r in runs if r["tree"] == name) / 2
                    for k in runs[0]["ms"]} for name in ("A", "B")}
-    print(json.dumps({"mean_ms": mean}), flush=True)
-    return 0
+    ratio = {k: mean["B"][k] / mean["A"][k] for k in mean["A"]}
+    for shape in runs[0]["digests"]:
+        pair = [mean[t][f"flash_bwd_{n} {shape}"] for t in ("A", "B")
+                for n in ("dq", "dkv")]
+        ratio[f"K7 + K8 {shape}"] = (pair[2] + pair[3]) / (pair[0] + pair[1])
+    same = all(r["digests"] == runs[0]["digests"] for r in runs)
+    print(json.dumps({"mean_ms": mean, "b_over_a": ratio,
+                      "digests_equal": same}), flush=True)
+    return 0 if same else 1
 
 
 def _copy(dst: Path) -> None:
@@ -274,6 +345,7 @@ def faults(names=None) -> int:
     for name in names or FAULTS:
         src_name, old, new = FAULTS[name]
         tests, fn, shapes, must_fail = CHECKS[src_name]
+        must_fail = _must_fail(name, shapes, must_fail)
         with tempfile.TemporaryDirectory() as tmp:
             dst = Path(tmp)
             _copy(dst)
@@ -820,7 +892,7 @@ def main(argv=None) -> int:
     p_ab.add_argument("tree_a")
     p_ab.add_argument("tree_b")
     p_faults = sub.add_parser("faults",
-                              help="plant faults in K11's and K9's sums")
+                              help="plant faults in K11, K9, K7 and K8")
     p_faults.add_argument("names", nargs="*", metavar="NAME",
                           help="faults to plant (default: all): "
                                + ", ".join(FAULTS))

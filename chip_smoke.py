@@ -94,8 +94,9 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
 19. holds every kernel against its plain PyTorch version on the card, at
     the shapes the paths give it and at widths past one tile (K3 at
     H = 256, the flash kernels at D = 160), and times both (and, where
-    one exists, a PyTorch call computing the same function; for K9 also
-    K7 + K8 on its inputs; for K6b-ring also at Tq != Tk, the zigzag
+    one exists, a PyTorch call computing the same function; K9 and K7 +
+    K8 bit for bit on one another's inputs; for K6b-ring also at Tq !=
+    Tk, the zigzag
     ring's half blocks); K5 on 4 ranks on the card (``fleet_sharded
     --ring-only``): 200 reduces back to back, each of its own vectors,
     bit for bit against the plain ring on the CPU among the same ranks,
@@ -674,9 +675,11 @@ def _check_close(name: str, got, want, mag) -> tuple:
 def _flash_train_rows(T, S, D, seed, iters=20, eager_iters=50):
     """K6b, K7 and K8 at one shape: each against its plain version at
     the kernels' block on the same inputs (the backward on K6b's own o,
-    m, l and a random bf16 cotangent), and timed beside its plain
-    version and PyTorch's SDPA (forward; backward, which gives dq, dk
-    and dv together, as fwd+bwd minus fwd)."""
+    m, l and a random bf16 cotangent), K7's and K8's dq, dk and dv
+    against K9's on those inputs, value for value (the three sum every
+    product in the same order), and each timed beside its plain version
+    and PyTorch's SDPA (forward; backward, which gives dq, dk and dv
+    together, as fwd+bwd minus fwd)."""
     import torch
 
     from aws_global_accelerator_controller_tpu_torch.ops import (
@@ -737,7 +740,13 @@ def _flash_train_rows(T, S, D, seed, iters=20, eager_iters=50):
     again = ca.flash_attention_bwd(q, k, v, o, do, m, l)
     check(all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))),
           f"flash backward {shape}: two runs differ")
-    del mag_dq, mag_dk, mag_dv, want_dq, want_dk, want_dv, again
+    fused = ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec)
+    same_as_k9 = [bool(torch.equal(a, b))
+                  for a, b in zip((dq, dk, dv), fused)]
+    check(same_as_k9[0], f"flash_bwd_dq {shape}: not bit for bit K9's dq")
+    check(all(same_as_k9[1:]),
+          f"flash_bwd_dkv {shape}: not bit for bit K9's dk, dv")
+    del mag_dq, mag_dk, mag_dv, want_dq, want_dk, want_dv, again, fused
 
     leaves = [x.requires_grad_(True) for x in heads]
     dout = do.transpose(0, 1).unsqueeze(0).contiguous()
@@ -759,6 +768,7 @@ def _flash_train_rows(T, S, D, seed, iters=20, eager_iters=50):
         bound_ms(10 * T * S * D + stats_bytes, 6.0 * D * pairs,
                  BF16_FLOP_PER_S))
     k7["max_ulps_of_magnitude"] = dq_ulps
+    k7["bit_identical_to_k9"] = same_as_k9[0]
     k8 = _record(
         "flash_bwd_dkv", f"{SRC}/flash_attention_bwd.cu",
         f"{REF}/ops/pallas_attention.py:707", shape, max(dk_err, dv_err),
@@ -770,6 +780,7 @@ def _flash_train_rows(T, S, D, seed, iters=20, eager_iters=50):
         bound_ms(12 * T * S * D + stats_bytes, 8.0 * D * pairs,
                  BF16_FLOP_PER_S))
     k8["max_ulps_of_magnitude"] = max(dk_ulps, dv_ulps)
+    k8["bit_identical_to_k9"] = all(same_as_k9[1:])
     return fwd, k7, k8
 
 

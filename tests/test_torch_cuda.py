@@ -10,6 +10,9 @@ Each kernel is held against its plain version on the same inputs with
 the port's tolerances (``parity.py``); the planners on the card are held
 against themselves on the CPU and against their own full repack.
 """
+import ctypes
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -556,6 +559,251 @@ def test_fused_backward_kernel_replays_in_a_cuda_graph(cuda, T, S, D,
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = flash_bwd_dqkv(*args, causal)
+    for i in range(10):
+        for x in out:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), i
+
+
+def _two_sweeps(args, causal):
+    return (flash_bwd_dq(*args, causal), *flash_bwd_dkv(*args, causal))
+
+
+@pytest.mark.parametrize("T", [1024, 2048])
+@pytest.mark.parametrize("D", [20, 40, 64, 128, 160, 256, 288])
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_sweep_backward_equals_fused_kernel(cuda, T, D, causal):
+    """K7 and K8 at 128 heads, where the reference's route takes the two
+    sweeps, against K9 on the same inputs: dq, dk and dv equal value for
+    value, over 16 and 32 blocks, at widths padded by the wrapper (20),
+    in the kernels (40), in one warpgroup's tile (64, 128), split
+    between two warpgroups (160, 256) and in the 128-column chunks of the
+    widest heads (288: two whole chunks and a part)."""
+    assert not fused_bwd_route(T, 128, D)
+    args = _fused_backward_inputs(cuda, T, 128, D, causal, T + 3 * D)
+    build.reset_launch_counts()
+    got = _two_sweeps(args, causal)
+    counts = build.launch_counts()
+    assert (counts["flash_bwd_dq"], counts["flash_bwd_dkv"],
+            counts["flash_bwd_dqkv"]) == (1, 1, 0)
+    want = flash_bwd_dqkv(*args, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == args[0].shape
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("T,D", [(130, 32), (1024, 128), (1024, 160)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_sweep_backward_equals_fused_kernel_on_wide_scores(cuda, T, D,
+                                                               causal):
+    """q and k scaled by 12, so that a row's scores span hundreds and
+    exp(s - m) reaches the subnormal floats: K7's and K8's quotients p =
+    exp(s - m) / max(l, 1) then leave the range of their fast division
+    and take its wide path, and must still equal K9's `/` value for
+    value."""
+    q, k, v = _qkv(cuda, T, 40, D, 5 * T + D)
+    q, k = (x * 12 for x in (q, k))
+    do = _qkv(cuda, T, 40, D, T + D)[0]
+    o, m, l = flash_attention_stats(q, k, v, causal)
+    args = (q, k, v, do, m, l, attention_dvec(o, do))
+    got = _two_sweeps(args, causal)
+    want = flash_bwd_dqkv(*args, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert torch.equal(g, w), name
+
+
+#: the edges of the range where K7's and K8's quotients skip `/`'s check
+_LN2 = float(np.log(2.0))
+#: row offsets of m: exp(s - m) just inside, just outside and across
+#: 2^-64 and 2^30 (|s| < 0.01 here), or the row's own m
+_EDGE_M = (64 * _LN2 - 0.02, 64 * _LN2 + 0.02, 64 * _LN2,
+           -30 * _LN2 + 0.02, -30 * _LN2 - 0.02, -30 * _LN2, None)
+#: l: at, inside and past 2^24, below 1 (max(l, 1) = 1), or the row's own
+_EDGE_L = (2.0 ** 24, 2.0 ** 24 - 1, 2.0 ** 24 + 2, 1.0, 0.5, 3.7, None)
+
+
+@pytest.mark.parametrize("D", [32, 128, 160])
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_sweep_backward_equals_fused_kernel_at_the_division_edges(
+        cuda, D, causal):
+    """Scores within 0.01 of 0 (q scaled by 2^-10) and stats set a
+    64-row block at a time, so that whole warps see exp(s - m) just
+    inside and just outside 2^-64 and 2^30 and max(l, 1) at, inside and
+    past 2^24: K7's and K8's quotients take their fast division up to the
+    edges of its range and `/` past them, and must equal K9's `/` value
+    for value."""
+    T, S = 1024, 40
+    q, k, v, do, m, l, dvec = _fused_backward_inputs(cuda, T, S, D, causal,
+                                                     9 * T + D)
+    q = q * 2.0 ** -10
+    rng = np.random.default_rng(D + causal)
+    m, l = m.clone(), l.clone()
+    for h in range(S):
+        for r0 in range(0, T, 64):
+            mi, li = rng.integers(len(_EDGE_M)), rng.integers(len(_EDGE_L))
+            if _EDGE_M[mi] is not None:
+                m[h, r0:r0 + 64] = _EDGE_M[mi]
+            if _EDGE_L[li] is not None:
+                l[h, r0:r0 + 64] = _EDGE_L[li]
+    args = (q, k, v, do, m, l, dvec)
+    got = _two_sweeps(args, causal)
+    want = flash_bwd_dqkv(*args, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert torch.equal(g, w), name
+
+
+_DIVISION_SRC = r"""
+#include "flash_common.cuh"
+using namespace agac_flash;
+
+#define EACH(i, n) \
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < (n); \
+       i += gridDim.x * blockDim.x)
+
+// b: the floats with bits [lo, lo + n)
+__global__ void reciprocals(unsigned lo, unsigned n,
+                            unsigned long long* bad) {
+  unsigned long long miss = 0;
+  EACH(i, n) {
+    const float b = __uint_as_float(lo + i);
+    miss += __float_as_uint(div_reciprocal(b)) !=
+            __float_as_uint(__frcp_rn(b));
+  }
+  if (miss) atomicAdd(bad, miss);
+}
+
+__global__ void quotients(const float* as, int na, unsigned lo, unsigned n,
+                          unsigned long long* bad) {
+  unsigned long long miss = 0;
+  EACH(i, n) {
+    const float b = __uint_as_float(lo + i);
+    const float r = div_reciprocal(b);
+    for (int j = 0; j < na; ++j)
+      miss += __float_as_uint(div_by(as[j], b, r)) !=
+              __float_as_uint(as[j] / b);
+  }
+  if (miss) atomicAdd(bad, miss);
+}
+
+// every 32-bit pattern, in 2^31 halves
+__global__ void ranges(unsigned hi, unsigned long long* bad) {
+  unsigned long long miss = 0;
+  EACH(i, 0x80000000u) {
+    const unsigned x = hi | i;
+    const float a = __uint_as_float(x);
+    miss += div_in_range(a) !=
+            (x == 0u || (a >= 0x1p-64f && a <= 0x1p30f));
+  }
+  if (miss) atomicAdd(bad, miss);
+}
+
+extern "C" int check_reciprocals(unsigned lo, unsigned n,
+                                 unsigned long long* bad) {
+  reciprocals<<<4096, 256>>>(lo, n, bad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int check_quotients(const float* as, int na, unsigned lo,
+                               unsigned n, unsigned long long* bad) {
+  quotients<<<4096, 256>>>(as, na, lo, n, bad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int check_ranges(unsigned hi, unsigned long long* bad) {
+  ranges<<<4096, 256>>>(hi, bad);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _f32_bits(x: float) -> int:
+    return int(np.array(x, np.float32).view(np.uint32))
+
+
+def test_fast_division_is_the_ieee_division(cuda, tmp_path):
+    """K7's and K8's division helpers (csrc/flash_common.cuh) on the
+    card: div_reciprocal(b) is __frcp_rn(b), the correctly rounded
+    reciprocal, for every float b in [1, 2^24], which with Markstein's
+    theorem makes div_by(a, b) = RN(a / b) over the whole fast range;
+    div_by equals `/` for every b in [1, 2) at 64 quotients, and for
+    every b in [1, 2^24] at the range's edges; and div_in_range accepts
+    exactly 0 and [2^-64, 2^30] of all 2^32 bit patterns."""
+    src = tmp_path / "division.cu"
+    src.write_text(_DIVISION_SRC)
+    lib = tmp_path / "division.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                    f"-I{build.CSRC}", str(src), "-o", str(lib)],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    ptr = ctypes.c_void_p(bad.data_ptr())
+
+    def misses(rc):
+        assert rc == 0
+        torch.cuda.synchronize()
+        n = int(bad.item())
+        bad.zero_()
+        return n
+
+    one, top = _f32_bits(1.0), _f32_bits(2.0 ** 24)
+    span = ctypes.c_uint(top - one + 1)            # 201,326,593 floats
+    assert misses(so.check_reciprocals(ctypes.c_uint(one), span, ptr)) == 0
+
+    rng = np.random.default_rng(0)
+    edges = np.array([0.0, 2.0 ** -64, 2.0 ** 30, 1.0],
+                     np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges[1:2], 1),
+                            np.nextafter(edges[2:], 0)]).astype(np.float32)
+    spread = (rng.uniform(1, 2, 64)
+              * 2.0 ** rng.integers(-64, 30, 64)).astype(np.float32)
+    for a_values, n in ((edges, span), (spread, ctypes.c_uint(1 << 23))):
+        a = torch.from_numpy(a_values).to(cuda)
+        assert misses(so.check_quotients(
+            ctypes.c_void_p(a.data_ptr()), ctypes.c_int(len(a_values)),
+            ctypes.c_uint(one), n, ptr)) == 0, a_values
+    for hi in (0, 0x80000000):
+        assert misses(so.check_ranges(ctypes.c_uint(hi), ptr)) == 0
+
+
+@pytest.mark.parametrize("T,S,D", [(2048, 128, 128), (1024, 64, 160),
+                                   (64, 8192, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_sweep_backward_is_reproducible_back_to_back(cuda, T, S, D,
+                                                        causal):
+    """20 calls of K7 and K8 back to back (the next call's copies racing
+    the last one's stores), each bit for bit the first."""
+    args = _fused_backward_inputs(cuda, T, S, D, causal, T + S + D)
+    first = _two_sweeps(args, causal)
+    runs = [_two_sweeps(args, causal) for _ in range(20)]
+    torch.cuda.synchronize()
+    for i, run in enumerate(runs):
+        assert all(torch.equal(a, b) for a, b in zip(run, first)), i
+
+
+@pytest.mark.parametrize("T,S,D", [(2048, 128, 128), (1024, 64, 160),
+                                   (130, 40, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_sweep_backward_replays_in_a_cuda_graph(cuda, T, S, D, causal):
+    """K7 and K8 captured in a CUDA graph and replayed 10 times, the
+    outputs cleared before each replay: every replay bit for bit the
+    eager call."""
+    args = _fused_backward_inputs(cuda, T, S, D, causal, 2 * T + D)
+    want = _two_sweeps(args, causal)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        _two_sweeps(args, causal)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _two_sweeps(args, causal)
     for i in range(10):
         for x in out:
             x.zero_()

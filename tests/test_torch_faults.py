@@ -29,3 +29,10 @@ def test_every_k9_fault_is_planted_in_the_fused_backward():
     assert k9 == {"dq_skips_k_block_0", "dkv_first_q_block_only",
                   "dq_last_block_unscaled", "dq_skips_its_wait",
                   "ticket_map_drops_last_k_block"}
+
+
+def test_every_two_sweep_fault_is_planted_in_the_two_sweep_backward():
+    k7_k8 = {name for name, (src, _, _) in FAULTS.items()
+             if src.endswith("csrc/flash_attention_bwd.cu")}
+    assert k7_k8 == {"dq_prefetch_drops_v", "dkv_skips_last_q_block",
+                     "wide_head_drops_second_column_half"}
