@@ -3,21 +3,32 @@ one build, and a profile of the train step.
 
 ``ab TREE_A TREE_B``: device times of K3 (both entries, H = 128 and 256),
 of K10 and K11 (the train command's default shape and the reference's
-own head shape), of K6b, K7 and K8 apart (``chip_smoke.py``'s three
+own head shape), of K6a, K6b, K7 and K8 apart (``chip_smoke.py``'s three
 shapes of them: T = 64, S = 8192, D = 32; T = 2048, S = 128, D = 128;
 T = 1024, S = 64, D = 160) and of K9 (32 heads at T = 64, 1024 and 1536
 with D = 32, at T = 256 and 2048 with D = 128, and at T = 1024 with
-D = 160, two column chunks) in two checkouts, each in a fresh process
-with its own build, in the order A, B, B, A, so that a drift of the
-card's clock over the run falls on both alike.  Each run also prints a
-sha256 of K7's and K8's dq, dk and dv at each of their shapes (each
-taken as ``x.float() + 0.0``, so -0 and +0 hash alike), and ``ab``
-fails unless the four runs give the same digests: the two trees must
-agree value for value.  This is how two versions of a kernel are
-compared.
+D = 160) in two checkouts, each in a fresh process with its own build,
+in the order A, B, B, A, so that a drift of the card's clock over the
+run falls on both alike.  Each run also takes sha256 digests (each
+tensor as ``x.float() + 0.0``, so -0 and +0 hash alike): of K6a's o and
+K6b's o, m and l at the three shapes and over a sweep (S = 3, T in 1,
+63, 65, 200, 1024, D in 16, 20, 40, 64, 128, 136, 160, 200, 256, 288,
+causal and not, and at T = 200, D in 32, 160, 256 with v scaled by
+2^-110 or 2^32 in one head and one column of another, where the
+forward's division leaves its fast path for ``/``), and of K7's and K8's dq, dk, dv at the three shapes on
+the stats of the plain forward run on the card, which both trees compute
+alike, so that a change in the forward's last ulp can neither mask nor
+fake one in the backward.  First it runs the card test
+``test_wgmma_sums_as_mma_sync`` in TREE_B.  ``ab`` fails unless the four
+runs give the same backward digests, and the same forward digests where
+that test passed (wgmma sums as mma.sync, so the forward must keep its
+bits); where forward digests differ it prints the largest difference of
+o (bf16 ulps), m and l (f32 ulps) of B's first run from A's.  This is
+how two versions of a kernel are compared.
 
-``faults``: plants faults in K11's weight-gradient sums, in K9's sums
-and in K7's and K8's pipeline, each in a copy of this checkout made in a temporary directory,
+``faults``: plants faults in K11's weight-gradient sums, in K9's sums,
+in K7's and K8's pipeline and in the forward K6a/K6b, each in a copy of
+this checkout made in a temporary directory,
 and demands that the kernel's card tests and ``chip_smoke.py``'s check
 of it fail on every one, the latter at every shape where the fault
 changes the result:
@@ -48,7 +59,18 @@ changes the result:
   ``dkv_skips_last_q_block``, K8's walk stops before the last q block;
   ``wide_head_drops_second_column_half``, in a head wider than 128 the
   second warpgroup takes no output columns (of the smoke check's shapes,
-  a change at D = 160 only).
+  a change at D = 160 only);
+- K6a and K6b (the card tests of the forward against its plain version,
+  T up to 1024, D from 16 to 288; ``chip_smoke.py``'s check of K6b, K7
+  and K8 at its three shapes, which holds K6b to its plain version and
+  K6a's o to K6b's): ``fwd_v_from_previous_k_block``, the producer loads
+  v of K block kb - 1 into the stage of block kb (no change where T has
+  one block); ``fwd_walk_stops_one_k_block_short``, producer and
+  consumers fold one K block fewer (never none; no change where T has
+  one block); ``fwd_l_not_rescaled``, l misses its alpha rescale (no
+  change where T has one block); ``wide_head_fwd_drops_upper_columns``,
+  p.v stops after two 64-column boxes, so columns past 128 stay zero (of
+  the smoke check's shapes, a change at D = 160 only).
 
 ``profile``: ``torch.profiler`` over ``--steps`` (3) sequence-supervised
 train steps of the temporal model, by default at the train command's
@@ -135,9 +157,10 @@ ROOT = Path(__file__).resolve().parents[2]
 PKG = "aws_global_accelerator_controller_tpu_torch"
 
 # run inside a checkout: prints {"ms": {row: device ms}, "digests":
-# {shape: sha256 of K7's and K8's outputs}} of its kernels
+# {name: sha256}} of its kernels, and saves the forward's outputs to the
+# file named by its one argument
 _TIME = r"""
-import hashlib, json, torch, chip_smoke as cs
+import hashlib, json, sys, torch, chip_smoke as cs
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     forward_cuda, score_rows_cuda)
 from aws_global_accelerator_controller_tpu_torch.ops import cuda_head as ch
@@ -164,26 +187,73 @@ for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
         lambda: ch.score_head_forward(x, w1, b1, w2, b2))
     out["score_head_bwd " + shape] = cs.time_device(
         lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))
-digests = {}
+digests, saved = {}, {}
+
+
+def digest(*xs):
+    h = hashlib.sha256()
+    for x in xs:
+        h.update((x.float() + 0.0).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 for T, S, D in ((64, 8192, 32), (2048, 128, 128), (1024, 64, 160)):
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(T, S, D, device="cuda", generator=g)
                    .to(torch.bfloat16) for _ in range(4))
     shape = f"T={T} S={S} D={D}"
+    out["flash_attention " + shape] = cs.time_device(
+        lambda: ca.flash_attention_forward(q, k, v))
     out["flash_attention_stats " + shape] = cs.time_device(
         lambda: ca.flash_attention_stats(q, k, v))
     o, m, l = ca.flash_attention_stats(q, k, v)
+    o6a = ca.flash_attention_forward(q, k, v)
+    digests["fwd " + shape] = digest(o6a, o, m, l)
+    saved[shape] = [x.cpu() for x in (o6a, o, m, l)]
+    del o, m, l, o6a
+    # the backward on the plain forward's stats: alike in both trees
+    o, m, l = ca.flash_attention_stats_plain(q, k, v, True, ca.BLOCK_K)
     dvec = ca.attention_dvec(o, do)
     out["flash_bwd_dq " + shape] = cs.time_device(
         lambda: ca.flash_bwd_dq(q, k, v, do, m, l, dvec))
     out["flash_bwd_dkv " + shape] = cs.time_device(
         lambda: ca.flash_bwd_dkv(q, k, v, do, m, l, dvec))
-    h = hashlib.sha256()
-    for x in (ca.flash_bwd_dq(q, k, v, do, m, l, dvec),
-              *ca.flash_bwd_dkv(q, k, v, do, m, l, dvec)):
-        h.update((x.float() + 0.0).cpu().numpy().tobytes())
-    digests[shape] = h.hexdigest()
+    digests["bwd " + shape] = digest(
+        ca.flash_bwd_dq(q, k, v, do, m, l, dvec),
+        *ca.flash_bwd_dkv(q, k, v, do, m, l, dvec))
     del q, k, v, do, o, m, l, dvec
+for T in (1, 63, 65, 200, 1024):
+    for D in (16, 20, 40, 64, 128, 136, 160, 200, 256, 288):
+        for causal in (True, False):
+            g = torch.Generator(device="cuda").manual_seed(T * 1000 + D)
+            q, k, v = (torch.randn(T, 3, D, device="cuda", generator=g)
+                       .to(torch.bfloat16) for _ in range(3))
+            o, m, l = ca.flash_attention_stats(q, k, v, causal)
+            o6a = ca.flash_attention_forward(q, k, v, causal)
+            shape = f"T={T} S=3 D={D} causal={causal}"
+            digests["fwd " + shape] = digest(o6a, o, m, l)
+            saved[shape] = [x.cpu() for x in (o6a, o, m, l)]
+# v scaled by 2^e in head 0 and in one column of head 1, so that |acc|
+# leaves the range of the forward's fast division there (q near 0 and
+# |v| in [1, 2) of one sign a column: no product is subnormal)
+for D in (32, 160, 256):
+    for causal in (True, False):
+        for e in (-110, 32):
+            g = torch.Generator(device="cuda").manual_seed(D + e)
+            q = (torch.randn(200, 3, D, device="cuda", generator=g)
+                 * 2.0 ** -10).to(torch.bfloat16)
+            k = torch.randn(200, 3, D, device="cuda",
+                            generator=g).to(torch.bfloat16)
+            v = 1 + torch.rand(200, 3, D, device="cuda", generator=g)
+            v[..., 1::2] *= -1
+            v[:, 0] *= 2.0 ** e
+            v[:, 1, 5] *= 2.0 ** e
+            v = v.to(torch.bfloat16)
+            o, m, l = ca.flash_attention_stats(q, k, v, causal)
+            o6a = ca.flash_attention_forward(q, k, v, causal)
+            shape = f"T=200 S=3 D={D} causal={causal} v*2^{e}"
+            digests["fwd " + shape] = digest(o6a, o, m, l)
+            saved[shape] = [x.cpu() for x in (o6a, o, m, l)]
 for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
                 (256, 32, 128), (2048, 32, 128), (1024, 32, 160)):
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -193,6 +263,7 @@ for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
     dvec = ca.attention_dvec(o, do)
     out[f"flash_bwd_dqkv T={T} S={S} D={D}"] = cs.time_device(
         lambda: ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec))
+torch.save(saved, sys.argv[1])
 print(json.dumps({"ms": out, "digests": digests}))
 """
 
@@ -215,6 +286,7 @@ raise SystemExit(1 if errors else 0)
 _HEAD_SRC = f"{PKG}/csrc/score_head.cu"
 _DQKV_SRC = f"{PKG}/csrc/flash_attention_dqkv.cu"
 _BWD_SRC = f"{PKG}/csrc/flash_attention_bwd.cu"
+_FWD_SRC = f"{PKG}/csrc/flash_attention.cu"
 #: name -> (source, a text of it once, the faulty replacement)
 FAULTS = {
     "half_partials": (
@@ -274,6 +346,23 @@ FAULTS = {
         _BWD_SRC,
         "  return kWide ? (half ? steps - first : first) : kDPad / 16;",
         "  return kWide ? (half ? 0 : first) : kDPad / 16;"),
+    "fwd_v_from_previous_k_block": (
+        _FWD_SRC,
+        "tma_tile<kDPad>(vs + stage * L::kBytes, &v_map, s, k0,",
+        "tma_tile<kDPad>(vs + stage * L::kBytes, &v_map, s, "
+        "max(k0 - kBlock, 0),"),
+    "fwd_walk_stops_one_k_block_short": (
+        _FWD_SRC,
+        "  return causal ? qb + 1 : n_kb;",
+        "  return max(causal ? qb : n_kb - 1, 1);"),
+    "fwd_l_not_rescaled": (
+        _FWD_SRC,
+        "row_l[r] = row_l[r] * alpha[r] + rsum[r];",
+        "row_l[r] = row_l[r] + rsum[r];"),
+    "wide_head_fwd_drops_upper_columns": (
+        _FWD_SRC,
+        "  constexpr int kPvGroups = L::kBoxes;",
+        "  constexpr int kPvGroups = L::kBoxes < 2 ? L::kBoxes : 2;"),
 }
 #: source -> (card tests (-k), chip_smoke function, its shapes, how many
 #: of them each fault must fail)
@@ -286,6 +375,10 @@ CHECKS = {
     _BWD_SRC: ("two_sweep_backward", "_flash_train_rows",
                ((64, 8192, 32, 9), (2048, 128, 128, 10),
                 (1024, 64, 160, 12)), 2),
+    _FWD_SRC: ("flash_attention_kernel_matches or flash_stats_and_backward "
+               "or flash_forward", "_flash_train_rows",
+               ((64, 8192, 32, 9), (2048, 128, 128, 10),
+                (1024, 64, 160, 12)), 2),
 }
 
 
@@ -293,7 +386,8 @@ def _must_fail(name: str, shapes, must_fail: int) -> int:
     """How many of its source's smoke shapes a fault must fail: the
     source's count, or every shape the changed code runs at if fewer.  A
     fault named ``wide_head_*`` changes only heads wider than 128 (the
-    shapes' third entry, D), of which K7's and K8's smoke check has one."""
+    shapes' third entry, D), of which the flash kernels' smoke check has
+    one."""
     if name.startswith("wide_head_"):
         return min(must_fail, sum(shape[2] > 128 for shape in shapes))
     return must_fail
@@ -304,31 +398,89 @@ def _run(cmd, cwd, timeout=900):
                           timeout=timeout)
 
 
+#: the card test that decides whether the forward must keep its bits
+_PROBE = "test_wgmma_sums_as_mma_sync"
+#: the three shapes of K6a, K6b, K7 and K8 that ab times
+_AB_SHAPES = ("T=64 S=8192 D=32", "T=2048 S=128 D=128", "T=1024 S=64 D=160")
+
+
+def _max_ulps(a_runs: str, b_runs: str, points) -> dict:
+    """The largest difference of the forward's outputs between two runs'
+    saved files, at ``points``: K6a's and K6b's o in bf16 ulps, m and l
+    in f32 ulps, each of the larger magnitude of the pair."""
+    import numpy as np
+    import torch
+
+    from ..parity import bf16_ulp
+
+    a, b = torch.load(a_runs), torch.load(b_runs)
+    worst = {"o_k6a": 0.0, "o_k6b": 0.0, "m": 0.0, "l": 0.0}
+    for point in points:
+        for name, x, y in zip(worst, a[point], b[point]):
+            x, y = x.float().numpy(), y.float().numpy()
+            if not x.size:
+                continue
+            big = np.maximum(np.abs(x), np.abs(y))
+            ulp = bf16_ulp(big) if name.startswith("o") else np.spacing(big)
+            worst[name] = max(worst[name], float((np.abs(x - y) / ulp).max()))
+    return worst
+
+
 def ab(tree_a: str, tree_b: str) -> int:
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], ROOT, timeout=60)
     print(json.dumps({"card": card.stdout.strip()}), flush=True)
-    runs = []
-    for name, tree in (("A", tree_a), ("B", tree_b), ("B", tree_b),
-                       ("A", tree_a)):
-        r = _run([sys.executable, "-c", _TIME], Path(tree).resolve())
-        if r.returncode:
-            print(r.stdout, r.stderr[-4000:], file=sys.stderr)
-            return 1
-        res = json.loads(r.stdout.strip().splitlines()[-1])
-        runs.append({"tree": name, "path": tree, **res})
-        print(json.dumps(runs[-1]), flush=True)
-    mean = {name: {k: sum(r["ms"][k] for r in runs if r["tree"] == name) / 2
-                   for k in runs[0]["ms"]} for name in ("A", "B")}
-    ratio = {k: mean["B"][k] / mean["A"][k] for k in mean["A"]}
-    for shape in runs[0]["digests"]:
-        pair = [mean[t][f"flash_bwd_{n} {shape}"] for t in ("A", "B")
-                for n in ("dq", "dkv")]
-        ratio[f"K7 + K8 {shape}"] = (pair[2] + pair[3]) / (pair[0] + pair[1])
-    same = all(r["digests"] == runs[0]["digests"] for r in runs)
-    print(json.dumps({"mean_ms": mean, "b_over_a": ratio,
-                      "digests_equal": same}), flush=True)
-    return 0 if same else 1
+    probe = _run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                  "-p", "no:cacheprovider", "tests/test_torch_cuda.py", "-k",
+                  _PROBE], Path(tree_b).resolve())
+    summary = (probe.stdout.strip().splitlines() or [""])[-1]
+    probe_passed = probe.returncode == 0 and "1 passed" in summary
+    print(json.dumps({"probe": _PROBE, "tree": tree_b, "passed": probe_passed,
+                      "summary": summary}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for i, (name, tree) in enumerate((("A", tree_a), ("B", tree_b),
+                                          ("B", tree_b), ("A", tree_a))):
+            saved = str(Path(tmp) / f"run{i}.pt")
+            r = _run([sys.executable, "-c", _TIME, saved],
+                     Path(tree).resolve())
+            if r.returncode:
+                print(r.stdout, r.stderr[-4000:], file=sys.stderr)
+                return 1
+            res = json.loads(r.stdout.strip().splitlines()[-1])
+            runs.append({"tree": name, "path": tree, "saved": saved, **res})
+            print(json.dumps({"tree": name, "path": tree, "ms": res["ms"],
+                              "digests": {k: v for k, v in
+                                          res["digests"].items()
+                                          if "S=3 " not in k}}), flush=True)
+        mean = {name: {k: sum(r["ms"][k] for r in runs
+                              if r["tree"] == name) / 2
+                       for k in runs[0]["ms"]} for name in ("A", "B")}
+        ratio = {k: mean["B"][k] / mean["A"][k] for k in mean["A"]}
+        for shape in _AB_SHAPES:
+            pair = [mean[t][f"flash_bwd_{n} {shape}"] for t in ("A", "B")
+                    for n in ("dq", "dkv")]
+            ratio[f"K7 + K8 {shape}"] = (pair[2] + pair[3]) / (pair[0]
+                                                               + pair[1])
+        differ = sorted({k for r in runs for k, v in r["digests"].items()
+                         if v != runs[0]["digests"][k]})
+        bwd_differ = [k for k in differ if k.startswith("bwd ")]
+        fwd_differ = [k[4:] for k in differ if k.startswith("fwd ")]
+        result = {"mean_ms": mean, "b_over_a": ratio,
+                  "bwd_digests_equal": not bwd_differ,
+                  "fwd_digests_equal": not fwd_differ,
+                  "fwd_points": sum(k.startswith("fwd ")
+                                    for k in runs[0]["digests"]),
+                  "fwd_points_differing": len(fwd_differ),
+                  "fwd_must_be_equal": probe_passed}
+        if fwd_differ:
+            result["fwd_differing_first"] = fwd_differ[:10]
+            # the parent (A, run 1) against this tree (B, run 2)
+            result["fwd_max_ulps_b_vs_a"] = _max_ulps(
+                runs[0]["saved"], runs[1]["saved"], fwd_differ)
+        print(json.dumps(result), flush=True)
+    ok = not bwd_differ and (not fwd_differ or not probe_passed)
+    return 0 if ok else 1
 
 
 def _copy(dst: Path) -> None:
@@ -892,7 +1044,8 @@ def main(argv=None) -> int:
     p_ab.add_argument("tree_a")
     p_ab.add_argument("tree_b")
     p_faults = sub.add_parser("faults",
-                              help="plant faults in K11, K9, K7 and K8")
+                              help="plant faults in K11, K9, K7, K8 and "
+                                   "K6a/K6b")
     p_faults.add_argument("names", nargs="*", metavar="NAME",
                           help="faults to plant (default: all): "
                                + ", ".join(FAULTS))

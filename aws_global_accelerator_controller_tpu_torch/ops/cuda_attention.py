@@ -36,7 +36,8 @@ The kernels take every head width D: a width that is not a multiple of
 8 is padded with zero columns on the way in (:func:`_pad_width`), which
 adds nothing to q.k^T or do.v^T, keeps the scale of the true D, and
 whose output columns are dropped; a width above 128 runs in 128-column
-chunks inside the kernels (K7 and K8 take up to 256 in one tile, its
+chunks inside the kernels, apart from K6a and K6b (one full-width tile
+up to 256, TMA-fed ``wgmma``) and K7 and K8 (up to 256 in one tile, its
 output columns split between two warpgroups).
 
 Arithmetic, shared by the kernels and the plain versions (``_prescale``

@@ -326,14 +326,16 @@ def _qkv(cuda, T, S, D, seed):
 @pytest.mark.parametrize("T,S,D", [(1, 3, 32), (72, 5, 16), (130, 4, 128),
                                    (200, 2, 40), (64, 1024, 32),
                                    (130, 4, 20), (72, 3, 160),
-                                   (64, 2, 256)])
+                                   (64, 2, 256), (130, 3, 136),
+                                   (72, 3, 288)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain_version(cuda, T, S, D,
                                                       causal):
     """K6a against its plain version at the kernel's K block: padded T
-    (72, 130, 200), T = 1, D padded in the kernel (40 -> 64), D padded
-    by the wrapper (20 -> 24), D in 128-column chunks (160, 256), and
-    the eval shape.  Tolerance: 2 bf16 ulps of the magnitude averaged."""
+    (72, 130, 200), T = 1, D padded in the kernel (40 -> 64, 136 and 160
+    -> 192), D padded by the wrapper (20 -> 24), one full-width tile up
+    to 256, the chunked kernel past it (288), and the eval shape.
+    Tolerance: 2 bf16 ulps of the magnitude averaged."""
     q, k, v = _qkv(cuda, T, S, D, T + S + D)
     build.reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
@@ -397,7 +399,7 @@ def _host(x):
 
 
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 130, 200])
-@pytest.mark.parametrize("D", [16, 32, 40, 64, 128, 20, 160, 256])
+@pytest.mark.parametrize("D", [16, 32, 40, 64, 128, 20, 160, 256, 136, 288])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_stats_and_backward_kernels_match_plain_versions(cuda, T, D,
                                                                causal):
@@ -429,6 +431,137 @@ def test_flash_stats_and_backward_kernels_match_plain_versions(cuda, T, D,
         assert g.dtype == torch.bfloat16 and g.shape == q.shape
         assert bool(torch.isfinite(g.float()).all()), name
         assert parity.attention_close(_host(g), _host(w), _host(mg)), name
+
+
+def _forward_matches(cuda, T, S, D, causal, seed):
+    """K6b against its plain version (o within 2 bf16 ulps of the
+    magnitude, m and l within 1e-5) and K6a's o equal to K6b's."""
+    q, k, v = _qkv(cuda, T, S, D, seed)
+    o, m, l = flash_attention_stats(q, k, v, causal)
+    o6a = flash_attention(q, k, v, causal)
+    po, pm, pl = flash_attention_stats_plain(q, k, v, causal, BLOCK_K)
+    mag = flash_attention_plain(q, k, v.abs(), causal, BLOCK_K)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all())
+    assert parity.attention_close(_host(o), _host(po), _host(mag))
+    assert torch.equal(o, o6a)
+    np.testing.assert_allclose(_host(m), _host(pm), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_host(l), _host(pl), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,S", [(65, 300), (1024, 40)])
+@pytest.mark.parametrize("D", [32, 128, 160])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_walks_more_tiles_than_the_card_has_sms(cuda, T, S, D,
+                                                              causal):
+    """More (head, q block) tiles than the card has SMs (600 and 640
+    against 132), so that each CTA of the persistent grid walks several,
+    of different lengths when causal."""
+    assert S * -(-T // BLOCK_K) > torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    _forward_matches(cuda, T, S, D, causal, T + S + D)
+
+
+def test_flash_forward_encodes_its_tensor_maps_per_call(cuda):
+    """K6b captured in a CUDA graph at one shape and K6b again, the same
+    kernel instantiation (D = 128, the stats written), launched on
+    another stream at another T, S and other buffers while the graph
+    replays: each launch carries its own tensor maps (a map kept once
+    per instantiation would read the wrong tensors), so both equal
+    their eager calls bit for bit."""
+    qa, ka, va = _qkv(cuda, 1024, 16, 128, 3)
+    qb, kb, vb = _qkv(cuda, 200, 24, 128, 4)
+    want_a = flash_attention_stats(qa, ka, va)
+    want_b = flash_attention_stats(qb, kb, vb, False)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        flash_attention_stats(qa, ka, va)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_a = flash_attention_stats(qa, ka, va)
+    other = torch.cuda.Stream(cuda)
+    for i in range(5):
+        for x in out_a:
+            x.zero_()
+        other.wait_stream(torch.cuda.current_stream(cuda))
+        graph.replay()
+        with torch.cuda.stream(other):
+            out_b = flash_attention_stats(qb, kb, vb, False)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out_a, want_a)), i
+        assert all(torch.equal(a, b) for a, b in zip(out_b, want_b)), i
+
+
+#: powers of two that take |acc| below 2^-64 or above 2^30, outside the
+#: range where K6a's and K6b's division skips `/`
+_FWD_EDGE_SCALES = (-110, -80, 32, 100)
+
+
+def _fwd_edge_inputs(cuda, T, S, D, seed):
+    """q within 2^-10 of 0 (every p within 2% of 1) and v of one sign a
+    column with |v| in [1, 2): no acc cancels and no product is
+    subnormal, even at 2^-110, so scaling v by a power of two scales
+    acc and acc / l exactly."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = (torch.randn(T, S, D, device=cuda, generator=g)
+         * 2.0 ** -10).to(torch.bfloat16)
+    k = torch.randn(T, S, D, device=cuda, generator=g).to(torch.bfloat16)
+    sign = torch.where(torch.arange(D, device=cuda) % 2 == 1, -1.0, 1.0)
+    v = ((1 + torch.rand(T, S, D, device=cuda, generator=g))
+         * sign).to(torch.bfloat16)
+    return q, k, v
+
+
+@pytest.mark.parametrize("e", _FWD_EDGE_SCALES)
+@pytest.mark.parametrize("D", [32, 128, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_division_at_the_edges_of_its_range(cuda, e, D,
+                                                          causal):
+    """v scaled by 2^e in parts, so that warps hold |acc| outside the
+    fast division's range: a whole head (every warp falls back to `/`),
+    one column (a warp whose out-of-range values sit in a quarter of its
+    lanes), and, causal, keys 0-7 of a head (rows 0-7 see only those;
+    at e < 0 warp 0 of q block 0 falls back with its rows 8-15 in range
+    while warps 1-3 take the fast path; non-causal, the upper half of
+    the columns instead).  Both branches must give RN(acc / l): K6a's and
+    K6b's o equal 2^e times their o of the unscaled v, value for value,
+    wherever that holds exactly, and m and l do not move."""
+    T, S = 200, 8
+    q, k, v = _fwd_edge_inputs(cuda, T, S, D, 31 * D + e + causal)
+    scale = torch.ones(T, S, D, device=cuda)
+    exact = torch.ones(T, S, D, dtype=torch.bool, device=cuda)
+    for h in range(S):
+        mode = h % 4
+        if mode == 1:
+            scale[:, h] = 2.0 ** e
+        elif mode == 2:
+            scale[:, h, (h + 2) % D] = 2.0 ** e
+        elif mode == 3 and causal:
+            scale[:8, h] = 2.0 ** e
+            exact[8:, h] = False
+        elif mode == 3:
+            scale[:, h, D // 2:] = 2.0 ** e
+    vs = (v.float() * scale).to(torch.bfloat16)
+    assert torch.equal(vs.float(), v.float() * scale)
+    o, m, l = flash_attention_stats(q, k, v, causal)
+    o6a = flash_attention(q, k, v, causal)
+    got = flash_attention_stats(q, k, vs, causal)
+    got6a = flash_attention(q, k, vs, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], m) and torch.equal(got[2], l)
+    assert torch.equal(got[0], got6a)
+    # o[t, h, d] scales as v[:, h, d] where that column is scaled whole,
+    # and rows 0-7 of a causal head as keys 0-7
+    for name, want, have in (("K6b", o, got[0]), ("K6a", o6a, got6a)):
+        assert bool(torch.isfinite(have.float()).all()), name
+        scaled = (want.float() * scale).to(torch.bfloat16)
+        assert torch.equal(have[exact], scaled[exact]), name
+    # rows that mix scaled and unscaled keys: against the plain version
+    po = flash_attention_stats_plain(q, k, vs, causal, BLOCK_K)[0]
+    mag = flash_attention_plain(q, k, vs.abs(), causal, BLOCK_K)
+    assert parity.attention_close(_host(got[0]), _host(po), _host(mag))
 
 
 @pytest.mark.parametrize("S", [16, 40])
@@ -770,6 +903,205 @@ def test_fast_division_is_the_ieee_division(cuda, tmp_path):
             ctypes.c_uint(one), n, ptr)) == 0, a_values
     for hi in (0, 0x80000000):
         assert misses(so.check_ranges(ctypes.c_uint(hi), ptr)) == 0
+
+
+_WGMMA_PROBE_SRC = r"""
+#include "flash_common.cuh"
+using namespace agac_flash;
+
+// element (r, c) of a 64-row box of 128-byte rows, 128-byte swizzle
+__device__ void put(uint8_t* box, int r, int c, __nv_bfloat16 x) {
+  *reinterpret_cast<__nv_bfloat16*>(
+      box + r * 128 + (((c / 8) ^ (r % 8)) * 16) + (c % 8) * 2) = x;
+}
+
+// One problem a CTA of one warpgroup: A [64 x 64] (rows x contraction),
+// B [64 x 64] stored [n][k] (the s product's k), V [64 x 128] stored
+// [k][n] (the p.v product's v), C [64 x 128] f32.  From the same C,
+// `steps` k16 steps of A.B^T by wgmma m64n64k16 (A, B from shared memory)
+// and by the 4 warps x 8 mma.sync m16n8k16 that cover the tile, and of
+// A.V by wgmma with A in registers and V transposed from shared memory
+// (two m64n64k16 a step, one a 64-column box) and by 4 x 16 mma.sync.
+__global__ void __launch_bounds__(128) probe(
+    const __nv_bfloat16* a_all, const __nv_bfloat16* b_all,
+    const __nv_bfloat16* v_all, const float* c_all, int steps,
+    float* ss_w, float* ss_m, float* rs_w, float* rs_m) {
+  __shared__ __align__(1024) uint8_t as[8192];
+  __shared__ __align__(1024) uint8_t bs[8192];
+  __shared__ __align__(1024) uint8_t vs[16384];
+  const int p = blockIdx.x;
+  const __nv_bfloat16* a = a_all + p * 64 * 64;
+  const __nv_bfloat16* b = b_all + p * 64 * 64;
+  const __nv_bfloat16* v = v_all + p * 64 * 128;
+  const float* c = c_all + p * 64 * 128;
+  for (int i = threadIdx.x; i < 64 * 64; i += 128) {
+    put(as, i / 64, i % 64, a[i]);
+    put(bs, i / 64, i % 64, b[i]);
+  }
+  for (int i = threadIdx.x; i < 64 * 128; i += 128)
+    put(vs + (i % 128 / 64) * 8192, i / 128, i % 64, v[i]);
+  fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp + lane / 4, tq = lane % 4;
+
+  float dw[8][4], dm[8][4], ew[16][4], em[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = c[(r0 + 8 * (i >> 1)) * 128 + 8 * j + 2 * tq + (i & 1)];
+      ew[j][i] = em[j][i] = x;
+      if (j < 8) dw[j][i] = dm[j][i] = x;
+    }
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const __nv_bfloat16* p0 = a + r0 * 64 + 16 * kk + 2 * tq;
+    af[kk][0] = load_pair(p0);
+    af[kk][1] = load_pair(p0 + 8 * 64);
+    af[kk][2] = load_pair(p0 + 8);
+    af[kk][3] = load_pair(p0 + 8 * 64 + 8);
+  }
+
+  using L = SwizzledTile<64>;
+  fence_acc(dw);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    if (kk < steps)
+      wgmma_ss64<0>(dw, gmma_desc<128>(as) + (L::k_step(kk) >> 4),
+                    gmma_desc<128>(bs) + (L::k_step(kk) >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dw);
+  fence_acc(ew);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    if (kk < steps)
+      wgmma_rs_groups<64, 2, 8192>(
+          ew, af[kk], gmma_desc<128>(vs) + ((kk * 16 * 128) >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(ew);
+
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= steps) break;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const __nv_bfloat16* q = b + (8 * nt + lane / 4) * 64 + 16 * kk + 2 * tq;
+      mma_bf16(dm[nt], af[kk], load_pair(q), load_pair(q + 8));
+    }
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const __nv_bfloat16* q =
+          v + (16 * kk + 2 * tq) * 128 + 8 * nt + lane / 4;
+      mma_bf16(em[nt], af[kk], pack_raw(q[0], q[128]),
+               pack_raw(q[8 * 128], q[9 * 128]));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int at = (r0 + 8 * (i >> 1)) * 128 + 8 * j + 2 * tq + (i & 1);
+      rs_w[p * 64 * 128 + at] = ew[j][i];
+      rs_m[p * 64 * 128 + at] = em[j][i];
+      if (j < 8) {
+        const int at64 = (r0 + 8 * (i >> 1)) * 64 + 8 * j + 2 * tq + (i & 1);
+        ss_w[p * 64 * 64 + at64] = dw[j][i];
+        ss_m[p * 64 * 64 + at64] = dm[j][i];
+      }
+    }
+}
+
+extern "C" int run_probe(const void* a, const void* b, const void* v,
+                         const void* c, int problems, int steps, void* ss_w,
+                         void* ss_m, void* rs_w, void* rs_m) {
+  probe<<<problems, 128>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(c),
+      steps, static_cast<float*>(ss_w), static_cast<float*>(ss_m),
+      static_cast<float*>(rs_w), static_cast<float*>(rs_m));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _wide(rng, shape, lo, hi):
+    """Values of either sign whose exponents span [lo, hi)."""
+    return (rng.uniform(1, 2, shape) * 2.0 ** rng.integers(lo, hi, shape)
+            * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+
+
+def _probe_operands(problems, seed):
+    """bf16 A [P, 64, 64], B [P, 64, 64] ([n][k]), V [P, 64, 128] ([k][n])
+    and f32 C [P, 64, 128]: exponents over 2^-12..2^12 (products over
+    2^-24..2^24, C over 2^-20..2^20), and in every other problem terms
+    that cancel: the second half of each k16 step repeats the first with
+    the other sign, exactly or to a bf16 ulp, and C is minus a row's
+    first product."""
+    rng = np.random.default_rng(seed)
+    a = _wide(rng, (problems, 64, 64), -12, 12)
+    b = _wide(rng, (problems, 64, 64), -12, 12)
+    v = _wide(rng, (problems, 64, 128), -12, 12)
+    c = _wide(rng, (problems, 64, 128), -20, 20)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    a, b, v = bf(a), bf(b), bf(v)
+    for p in range(1, problems, 2):
+        nudge = torch.from_numpy(
+            rng.choice([1.0, 1.0078125], (64, 32))).to(torch.bfloat16)
+        for k0 in range(0, 64, 16):
+            a[p, :, k0 + 8:k0 + 16] = a[p, :, k0:k0 + 8]
+            b[p, :, k0 + 8:k0 + 16] = -b[p, :, k0:k0 + 8] * nudge[:, k0 // 2:
+                                                                 k0 // 2 + 8]
+            v[p, k0 + 8:k0 + 16] = -v[p, k0:k0 + 8]
+        first = a[p].float() @ b[p].float().t()
+        c[p, :, :64] = -first.numpy() * rng.choice([1.0, 0.5], (64, 64))
+    return a, b, v, torch.from_numpy(c)
+
+
+def test_wgmma_sums_as_mma_sync(cuda, tmp_path):
+    """The bit contract of the forward's products (csrc/flash_common.cuh's
+    wgmma wrappers and descriptors): from the same f32 accumulators, one
+    and four k16 steps of a 64 x 64 x 16 product by wgmma m64n64k16 with
+    both operands in shared memory (128-byte swizzle, K-major), and of a
+    64 x 128 x 16 product with A in registers and B transposed from two
+    swizzled boxes, give every f32 bit that the 4 warps x 8 (16) mma.sync
+    m16n8k16 steps covering the same tile give, over bf16 operands whose
+    products span 2^-24..2^24 and terms that cancel."""
+    src = tmp_path / "probe.cu"
+    src.write_text(_WGMMA_PROBE_SRC)
+    lib = tmp_path / "probe.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                    f"-I{build.CSRC}", str(src), "-o", str(lib)],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    problems = 256
+    a, b, v, c = (x.to(cuda) for x in _probe_operands(problems, 0))
+    for steps in (1, 4):
+        out = [torch.full((problems, 64, n), float("nan"), device=cuda)
+               for n in (64, 64, 128, 128)]
+        ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (a, b, v, c, *out)]
+        assert so.run_probe(*ptrs[:4], ctypes.c_int(problems),
+                            ctypes.c_int(steps), *ptrs[4:]) == 0
+        torch.cuda.synchronize()
+        for name, w, m in (("ss", out[0], out[1]), ("rs", out[2], out[3])):
+            assert bool(torch.isfinite(m).all()), (name, steps)
+            diff = w.view(torch.int32) != m.view(torch.int32)
+            if bool(diff.any()):
+                p, r, col = (int(i) for i in diff.nonzero()[0])
+                worst = float((w - m).abs().max())
+                raise AssertionError(
+                    f"{name}, {steps} k16 steps: {int(diff.sum())} of "
+                    f"{diff.numel()} sums differ; first at problem {p} "
+                    f"({'cancelling' if p % 2 else 'random'}), row {r}, "
+                    f"column {col}: wgmma {float(w[p, r, col])!r}, "
+                    f"mma.sync {float(m[p, r, col])!r}; largest "
+                    f"difference {worst!r}")
 
 
 @pytest.mark.parametrize("T,S,D", [(2048, 128, 128), (1024, 64, 160),

@@ -36,3 +36,11 @@ def test_every_two_sweep_fault_is_planted_in_the_two_sweep_backward():
              if src.endswith("csrc/flash_attention_bwd.cu")}
     assert k7_k8 == {"dq_prefetch_drops_v", "dkv_skips_last_q_block",
                      "wide_head_drops_second_column_half"}
+
+
+def test_every_forward_fault_is_planted_in_the_flash_forward():
+    k6 = {name for name, (src, _, _) in FAULTS.items()
+          if src.endswith("csrc/flash_attention.cu")}
+    assert k6 == {"fwd_v_from_previous_k_block",
+                  "fwd_walk_stops_one_k_block_short", "fwd_l_not_rescaled",
+                  "wide_head_fwd_drops_upper_columns"}
