@@ -5,7 +5,8 @@ one build, and a profile of the train step.
 of K10 and K11 (the train command's default shape and the reference's
 own head shape), of K6a, K6b, K7 and K8 apart (``chip_smoke.py``'s three
 shapes of them: T = 64, S = 8192, D = 32; T = 2048, S = 128, D = 128;
-T = 1024, S = 64, D = 160) and of K9 (32 heads at T = 64, 1024 and 1536
+T = 1024, S = 64, D = 160), of K6b-ring (``chip_smoke.py``'s seven
+shapes of it) and of K9 (32 heads at T = 64, 1024 and 1536
 with D = 32, at T = 256 and 2048 with D = 128, and at T = 1024 with
 D = 160) in two checkouts, each in a fresh process with its own build,
 in the order A, B, B, A, so that a drift of the card's clock over the
@@ -18,17 +19,24 @@ causal and not, and at T = 200, D in 32, 160, 256 with v scaled by
 forward's division leaves its fast path for ``/``), and of K7's and K8's dq, dk, dv at the three shapes on
 the stats of the plain forward run on the card, which both trees compute
 alike, so that a change in the forward's last ulp can neither mask nor
-fake one in the backward.  First it runs the card test
-``test_wgmma_sums_as_mma_sync`` in TREE_B.  ``ab`` fails unless the four
-runs give the same backward digests, and the same forward digests where
-that test passed (wgmma sums as mma.sync, so the forward must keep its
-bits); where forward digests differ it prints the largest difference of
-o (bf16 ulps), m and l (f32 ulps) of B's first run from A's.  This is
-how two versions of a kernel are compared.
+fake one in the backward; and of K6b-ring's o, m and l at 89 points (its
+seven shapes, the card tests' ragged ``RING_SHAPES``, a sweep of three
+heads with Tq, Tk from 1 to 200 and D from 16 to 288, causal and not,
+and q scaled by 2^-100 or 2^-120, where the lo term of q' is
+subnormal).  First it runs the card tests ``test_wgmma_sums_as_mma_sync``
+and ``test_wgmma_sums_split_terms_as_mma_sync`` in TREE_B.  ``ab``
+fails unless the four runs give the same backward digests, the same
+forward digests where the first test passed (wgmma sums as mma.sync, so
+the forward must keep its bits) and the same K6b-ring digests
+(``ring_digests_equal``) where the second did; where forward digests
+differ it prints the largest difference of o (bf16 ulps), m and l (f32
+ulps) of B's first run from A's, and where K6b-ring's differ, of its o,
+m and l in f32 ulps (over the first 256 heads of a point).  This is how
+two versions of a kernel are compared.
 
 ``faults``: plants faults in K11's weight-gradient sums, in K9's sums,
-in K7's and K8's pipeline and in the forward K6a/K6b, each in a copy of
-this checkout made in a temporary directory,
+in K7's and K8's pipeline, in the forward K6a/K6b and in K6b-ring, each
+in a copy of this checkout made in a temporary directory,
 and demands that the kernel's card tests and ``chip_smoke.py``'s check
 of it fail on every one, the latter at every shape where the fault
 changes the result:
@@ -70,7 +78,23 @@ changes the result:
   one block); ``fwd_l_not_rescaled``, l misses its alpha rescale (no
   change where T has one block); ``wide_head_fwd_drops_upper_columns``,
   p.v stops after two 64-column boxes, so columns past 128 stay zero (of
-  the smoke check's shapes, a change at D = 160 only).
+  the smoke check's shapes, a change at D = 160 only);
+- K6b-ring (the card tests ``-k ring_stats_kernel``: against the plain
+  version at ``RING_SHAPES``, and m against a one-hot k, where each score
+  is one exact product; ``chip_smoke.py``'s ``_k6b_ring_one`` at the
+  ring block, causal, at Tq = 64, Tk = 128 and at D = 160):
+  ``ring_drops_lo_term``, s misses the lo term's product (m off by about
+  2^-17 of it: the one-hot check); ``ring_walk_stops_one_k_block_short``,
+  producer and consumers fold one K block fewer (never none);
+  ``ring_l_not_rescaled``, l misses its alpha rescale;
+  ``wide_head_ring_drops_upper_columns``, p.v stops after two 64-column
+  boxes (a change at D = 160 only).
+
+``sass [SOURCE ...]``: compiles kernel sources (default K6b-ring's) with
+``-Xptxas -v`` and dumps their SASS: registers, stack and spills a
+kernel, every ptxas warning, HGMMA and HMMA counts, and for K6b-ring's
+source the CTAs an SM its launches take at each width class; exits 1 on
+a warning or on a spill in a wgmma kernel.
 
 ``profile``: ``torch.profiler`` over ``--steps`` (3) sequence-supervised
 train steps of the temporal model, by default at the train command's
@@ -135,6 +159,7 @@ Run from the root of a checkout, on a machine with one card::
 
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ab build/parent .
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks faults [NAME ...]
+    python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks sass [SOURCE ...]
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks profile [--window T --chunks 0 32 ...]
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ring --device cuda:0
     python3 -m torch.distributed.run --standalone --nproc-per-node 2 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks gloo --device cuda:0
@@ -254,6 +279,38 @@ for D in (32, 160, 256):
             shape = f"T=200 S=3 D={D} causal={causal} v*2^{e}"
             digests["fwd " + shape] = digest(o6a, o, m, l)
             saved[shape] = [x.cpu() for x in (o6a, o, m, l)]
+# K6b-ring: times at chip_smoke.py's seven shapes of it; digests of
+# (o, m, l) there, at the card tests' ragged RING_SHAPES, over a sweep of
+# three heads (Tq, Tk from 1 to 200, D from 16 to 288, causal and not),
+# and with q scaled by 2^-100 or 2^-120, where the lo term of q' is
+# subnormal; at most 256 heads of each saved
+RING = ((4096, 128, 128, 32, True, 0), (4096, 128, 128, 32, False, 0),
+        (128, 2048, 2048, 128, True, 0), (64, 64, 128, 32, False, 0),
+        (64, 128, 64, 32, False, 0), (256, 128, 128, 20, True, 0),
+        (256, 128, 128, 160, True, 0))
+RAGGED = ((3, 1, 1, 8, True, 0), (5, 70, 200, 40, True, 0),
+          (5, 200, 70, 16, True, 0), (2, 130, 65, 256, False, 0))
+SWEEP = tuple((3, Tq, Tk, D, causal, 0)
+              for Tq, Tk in ((1, 1), (65, 65), (200, 200), (64, 130),
+                             (130, 64))
+              for D in (16, 40, 64, 128, 160, 256, 288)
+              for causal in (True, False))
+TINY = tuple((3, 200, 200, D, causal, e) for D in (32, 128)
+             for causal in (True, False) for e in (-100, -120))
+for H, Tq, Tk, D, causal, e in RING + RAGGED + SWEEP + TINY:
+    g = torch.Generator(device="cuda").manual_seed(H + Tq + Tk + D)
+    q = torch.randn(H, Tq, D, device="cuda", generator=g) * 2.0 ** e
+    k, v = (torch.randn(H, Tk, D, device="cuda", generator=g)
+            .to(torch.bfloat16) for _ in range(2))
+    shape = f"H={H} Tq={Tq} Tk={Tk} D={D} causal={causal}" + (
+        f" q*2^{e}" if e else "")
+    if (H, Tq, Tk, D, causal, e) in RING:
+        out["flash_attention_stats_ring " + shape] = cs.time_device(
+            lambda: ca.flash_attention_stats_ring(q, k, v, causal))
+    res = ca.flash_attention_stats_ring(q, k, v, causal)
+    digests["ring " + shape] = digest(*res)
+    saved["ring " + shape] = [x[:256].cpu() for x in res]
+    del q, k, v, res
 for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
                 (256, 32, 128), (2048, 32, 128), (1024, 32, 160)):
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -287,6 +344,7 @@ _HEAD_SRC = f"{PKG}/csrc/score_head.cu"
 _DQKV_SRC = f"{PKG}/csrc/flash_attention_dqkv.cu"
 _BWD_SRC = f"{PKG}/csrc/flash_attention_bwd.cu"
 _FWD_SRC = f"{PKG}/csrc/flash_attention.cu"
+_RING_SRC = f"{PKG}/csrc/flash_attention_ring.cu"
 #: name -> (source, a text of it once, the faulty replacement)
 FAULTS = {
     "half_partials": (
@@ -363,6 +421,23 @@ FAULTS = {
         _FWD_SRC,
         "  constexpr int kPvGroups = L::kBoxes;",
         "  constexpr int kPvGroups = L::kBoxes < 2 ? L::kBoxes : 2;"),
+    "ring_drops_lo_term": (
+        _RING_SRC,
+        "        wgmma_ss64<0>(sc, lo_desc + step, k_desc + step);\n",
+        "        // the lo term's product dropped\n"),
+    "ring_walk_stops_one_k_block_short": (
+        _RING_SRC,
+        "  return causal ? min(n_kb, qb + 1) : n_kb;",
+        "  return max(causal ? min(n_kb, qb + 1) - 1 : n_kb - 1, "
+        "min(n_kb, 1));"),
+    "ring_l_not_rescaled": (
+        _RING_SRC,
+        "row_l[r] = row_l[r] * alpha[r] + rsum[r];",
+        "row_l[r] = row_l[r] + rsum[r];"),
+    "wide_head_ring_drops_upper_columns": (
+        _RING_SRC,
+        "  constexpr int kPvGroups = L::kBoxes;",
+        "  constexpr int kPvGroups = L::kBoxes < 2 ? L::kBoxes : 2;"),
 }
 #: source -> (card tests (-k), chip_smoke function, its shapes, how many
 #: of them each fault must fail)
@@ -379,17 +454,22 @@ CHECKS = {
                "or flash_forward", "_flash_train_rows",
                ((64, 8192, 32, 9), (2048, 128, 128, 10),
                 (1024, 64, 160, 12)), 2),
+    _RING_SRC: ("ring_stats_kernel", "_k6b_ring_one",
+                ((4096, 128, 128, 32, True, 18),
+                 (64, 64, 128, 32, False, 21),
+                 (256, 128, 128, 160, True, 24)), 3),
 }
 
 
-def _must_fail(name: str, shapes, must_fail: int) -> int:
+def _must_fail(name: str, src: str, shapes, must_fail: int) -> int:
     """How many of its source's smoke shapes a fault must fail: the
     source's count, or every shape the changed code runs at if fewer.  A
-    fault named ``wide_head_*`` changes only heads wider than 128 (the
-    shapes' third entry, D), of which the flash kernels' smoke check has
-    one."""
+    fault named ``wide_head_*`` changes only heads wider than 128 (D, the
+    shapes' third entry, K6b-ring's fourth), of which each flash kernel's
+    smoke check has one."""
     if name.startswith("wide_head_"):
-        return min(must_fail, sum(shape[2] > 128 for shape in shapes))
+        d_at = 3 if src == _RING_SRC else 2
+        return min(must_fail, sum(shape[d_at] > 128 for shape in shapes))
     return must_fail
 
 
@@ -400,28 +480,33 @@ def _run(cmd, cwd, timeout=900):
 
 #: the card test that decides whether the forward must keep its bits
 _PROBE = "test_wgmma_sums_as_mma_sync"
+#: the same for K6b-ring's three-term score product
+_RING_PROBE = "test_wgmma_sums_split_terms_as_mma_sync"
 #: the three shapes of K6a, K6b, K7 and K8 that ab times
 _AB_SHAPES = ("T=64 S=8192 D=32", "T=2048 S=128 D=128", "T=1024 S=64 D=160")
 
 
-def _max_ulps(a_runs: str, b_runs: str, points) -> dict:
+def _max_ulps(a_runs: str, b_runs: str, points,
+              names=("o_k6a", "o_k6b", "m", "l")) -> dict:
     """The largest difference of the forward's outputs between two runs'
-    saved files, at ``points``: K6a's and K6b's o in bf16 ulps, m and l
-    in f32 ulps, each of the larger magnitude of the pair."""
+    saved files, at ``points``, by ``names`` in the order saved: K6a's and
+    K6b's o in bf16 ulps, every other (K6b's m and l, K6b-ring's f32 o, m
+    and l) in f32 ulps, each of the larger magnitude of the pair."""
     import numpy as np
     import torch
 
     from ..parity import bf16_ulp
 
     a, b = torch.load(a_runs), torch.load(b_runs)
-    worst = {"o_k6a": 0.0, "o_k6b": 0.0, "m": 0.0, "l": 0.0}
+    worst = dict.fromkeys(names, 0.0)
     for point in points:
         for name, x, y in zip(worst, a[point], b[point]):
             x, y = x.float().numpy(), y.float().numpy()
             if not x.size:
                 continue
             big = np.maximum(np.abs(x), np.abs(y))
-            ulp = bf16_ulp(big) if name.startswith("o") else np.spacing(big)
+            ulp = (bf16_ulp(big) if name.startswith("o_k6")
+                   else np.spacing(big))
             worst[name] = max(worst[name], float((np.abs(x - y) / ulp).max()))
     return worst
 
@@ -430,13 +515,17 @@ def ab(tree_a: str, tree_b: str) -> int:
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], ROOT, timeout=60)
     print(json.dumps({"card": card.stdout.strip()}), flush=True)
-    probe = _run([sys.executable, "-m", "pytest", "--noconftest", "-q",
-                  "-p", "no:cacheprovider", "tests/test_torch_cuda.py", "-k",
-                  _PROBE], Path(tree_b).resolve())
-    summary = (probe.stdout.strip().splitlines() or [""])[-1]
-    probe_passed = probe.returncode == 0 and "1 passed" in summary
-    print(json.dumps({"probe": _PROBE, "tree": tree_b, "passed": probe_passed,
-                      "summary": summary}), flush=True)
+    passed = {}
+    for test in (_PROBE, _RING_PROBE):
+        probe = _run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                      "-p", "no:cacheprovider", "tests/test_torch_cuda.py",
+                      "-k", test], Path(tree_b).resolve())
+        summary = (probe.stdout.strip().splitlines() or [""])[-1]
+        passed[test] = probe.returncode == 0 and "1 passed" in summary
+        print(json.dumps({"probe": test, "tree": tree_b,
+                          "passed": passed[test], "summary": summary}),
+              flush=True)
+    probe_passed, ring_probe_passed = passed[_PROBE], passed[_RING_PROBE]
     with tempfile.TemporaryDirectory() as tmp:
         runs = []
         for i, (name, tree) in enumerate((("A", tree_a), ("B", tree_b),
@@ -452,7 +541,9 @@ def ab(tree_a: str, tree_b: str) -> int:
             print(json.dumps({"tree": name, "path": tree, "ms": res["ms"],
                               "digests": {k: v for k, v in
                                           res["digests"].items()
-                                          if "S=3 " not in k}}), flush=True)
+                                          if "S=3 " not in k
+                                          and "H=3 " not in k}}),
+                  flush=True)
         mean = {name: {k: sum(r["ms"][k] for r in runs
                               if r["tree"] == name) / 2
                        for k in runs[0]["ms"]} for name in ("A", "B")}
@@ -466,20 +557,32 @@ def ab(tree_a: str, tree_b: str) -> int:
                          if v != runs[0]["digests"][k]})
         bwd_differ = [k for k in differ if k.startswith("bwd ")]
         fwd_differ = [k[4:] for k in differ if k.startswith("fwd ")]
+        ring_differ = [k for k in differ if k.startswith("ring ")]
         result = {"mean_ms": mean, "b_over_a": ratio,
                   "bwd_digests_equal": not bwd_differ,
                   "fwd_digests_equal": not fwd_differ,
                   "fwd_points": sum(k.startswith("fwd ")
                                     for k in runs[0]["digests"]),
                   "fwd_points_differing": len(fwd_differ),
-                  "fwd_must_be_equal": probe_passed}
+                  "fwd_must_be_equal": probe_passed,
+                  "ring_digests_equal": not ring_differ,
+                  "ring_points": sum(k.startswith("ring ")
+                                     for k in runs[0]["digests"]),
+                  "ring_points_differing": len(ring_differ),
+                  "ring_must_be_equal": ring_probe_passed}
+        # the parent (A, run 1) against this tree (B, run 2)
         if fwd_differ:
             result["fwd_differing_first"] = fwd_differ[:10]
-            # the parent (A, run 1) against this tree (B, run 2)
             result["fwd_max_ulps_b_vs_a"] = _max_ulps(
                 runs[0]["saved"], runs[1]["saved"], fwd_differ)
+        if ring_differ:
+            result["ring_differing_first"] = ring_differ[:10]
+            result["ring_max_f32_ulps_b_vs_a"] = _max_ulps(
+                runs[0]["saved"], runs[1]["saved"], ring_differ,
+                ("o", "m", "l"))
         print(json.dumps(result), flush=True)
-    ok = not bwd_differ and (not fwd_differ or not probe_passed)
+    ok = (not bwd_differ and (not fwd_differ or not probe_passed)
+          and (not ring_differ or not ring_probe_passed))
     return 0 if ok else 1
 
 
@@ -497,7 +600,7 @@ def faults(names=None) -> int:
     for name in names or FAULTS:
         src_name, old, new = FAULTS[name]
         tests, fn, shapes, must_fail = CHECKS[src_name]
-        must_fail = _must_fail(name, shapes, must_fail)
+        must_fail = _must_fail(name, src_name, shapes, must_fail)
         with tempfile.TemporaryDirectory() as tmp:
             dst = Path(tmp)
             _copy(dst)
@@ -1037,6 +1140,75 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
         return 0
 
 
+def sass(sources=(_RING_SRC,)) -> int:
+    """Build checks of kernel sources with the card's toolkit: ``nvcc
+    -Xptxas -v`` (registers, stack and spills a kernel, and every ptxas
+    warning, such as C7515's serialised wgmma) and ``cuobjdump -sass`` of
+    the object (HGMMA and HMMA instructions a kernel); for K6b-ring's
+    source also the CTAs an SM its launches take at each width class.
+    One JSON object a kernel; exits 1 on a warning or on a spill in a
+    wgmma kernel (the mma.sync kernels kept past D = 256 are reported:
+    K6b-ring's spills 28 bytes, as its parent did)."""
+    import re
+
+    from .build import NVCC_FLAGS, nvcc_path
+
+    nvcc = Path(nvcc_path())
+    bad = False
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sources:
+            obj = Path(tmp) / (Path(src).stem + ".o")
+            r = _run([str(nvcc), *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                      str(ROOT / src), "-o", str(obj)], ROOT)
+            log = (r.stdout + r.stderr).splitlines()
+            if r.returncode:
+                print("\n".join(log[-40:]), file=sys.stderr)
+                return 1
+            dump = _run([str(nvcc.with_name("cuobjdump")), "-sass", str(obj)],
+                        ROOT).stdout
+            kernels, name = {}, None
+            for line in log:
+                m = re.search(r"Compiling entry function '(\w+)'", line)
+                if m:
+                    name = m.group(1)
+                    kernels[name] = {}
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+                if m and name:
+                    kernels[name].update(zip(("stack", "spill_stores",
+                                              "spill_loads"),
+                                             map(int, m.groups())))
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    kernels[name]["registers"] = int(m.group(1))
+            for part in dump.split("Function : ")[1:]:
+                fn = part.split(None, 1)[0]
+                if fn in kernels:
+                    kernels[fn]["hgmma"] = part.count("HGMMA")
+                    kernels[fn]["hmma"] = part.count("HMMA")
+            names = subprocess.run([str(nvcc.with_name("cu++filt"))],
+                                   input="\n".join(kernels),
+                                   capture_output=True, text=True)
+            pretty = names.stdout.split("\n") if names.returncode == 0 \
+                else list(kernels)
+            for fn, readable in zip(kernels, pretty):
+                rec = {"source": src, "kernel": readable, **kernels[fn]}
+                bad |= bool(rec.get("hgmma") and (rec.get("spill_stores")
+                                                  or rec.get("spill_loads")))
+                print(json.dumps(rec), flush=True)
+            warnings = [ln for ln in log if "warning" in ln]
+            bad |= bool(warnings)
+            print(json.dumps({"source": src, "ptxas_warnings": warnings}),
+                  flush=True)
+    if _RING_SRC in sources:
+        from ..ops.cuda_attention import flash_attention_stats_ring_ctas
+
+        print(json.dumps({"source": _RING_SRC, "ctas_per_sm_sms": {
+            D: flash_attention_stats_ring_ctas(D)
+            for D in (16, 32, 64, 128, 160, 256)}}), flush=True)
+    return 1 if bad else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1044,11 +1216,18 @@ def main(argv=None) -> int:
     p_ab.add_argument("tree_a")
     p_ab.add_argument("tree_b")
     p_faults = sub.add_parser("faults",
-                              help="plant faults in K11, K9, K7, K8 and "
-                                   "K6a/K6b")
+                              help="plant faults in K11, K9, K7, K8, "
+                                   "K6a/K6b and K6b-ring")
     p_faults.add_argument("names", nargs="*", metavar="NAME",
                           help="faults to plant (default: all): "
                                + ", ".join(FAULTS))
+    p_sass = sub.add_parser("sass", help="registers, spills, ptxas "
+                                         "warnings and tensor-core "
+                                         "instructions of kernel sources")
+    p_sass.add_argument("sources", nargs="*", default=[_RING_SRC],
+                        metavar="SOURCE",
+                        help=f"paths from the checkout (default: "
+                             f"{_RING_SRC})")
     p_prof = sub.add_parser("profile",
                             help="profile the temporal train step")
     for flag, default in (("steps", 3), ("window", 64), ("groups", 256),
@@ -1090,6 +1269,8 @@ def main(argv=None) -> int:
         return gloo(args.device)
     if args.cmd == "ring":
         return ring(args.device, args.T, args.H, args.D, args.seed)
+    if args.cmd == "sass":
+        return sass(tuple(args.sources))
     if args.cmd == "profile":
         return profile(args.steps, window=args.window, groups=args.groups,
                        endpoints=args.endpoints, embed=args.embed,

@@ -36,9 +36,9 @@ The kernels take every head width D: a width that is not a multiple of
 8 is padded with zero columns on the way in (:func:`_pad_width`), which
 adds nothing to q.k^T or do.v^T, keeps the scale of the true D, and
 whose output columns are dropped; a width above 128 runs in 128-column
-chunks inside the kernels, apart from K6a and K6b (one full-width tile
-up to 256, TMA-fed ``wgmma``) and K7 and K8 (up to 256 in one tile, its
-output columns split between two warpgroups).
+chunks inside the kernels, apart from K6a, K6b and K6b-ring (one
+full-width tile up to 256, TMA-fed ``wgmma``) and K7 and K8 (up to 256
+in one tile, its output columns split between two warpgroups).
 
 Arithmetic, shared by the kernels and the plain versions (``_prescale``
 ``:346``, ``_attend_step`` ``:197``, the backward bodies ``:480-514``,
@@ -489,7 +489,10 @@ def flash_attention_stats_ring(q: torch.Tensor, k: torch.Tensor,
     q [H, Tq, D] against bf16 k, v [H, Tk, D]: kernel K6b-ring on CUDA
     tensors (contiguous, 16-byte aligned, any D, Tq and Tk),
     :func:`flash_attention_stats_ring_plain` at :data:`BLOCK_K` on CPU
-    tensors."""
+    tensors.  Up to D = 256 the kernel reads q, k and v through TMA
+    tensor maps, which want a 16-byte aligned base (checked here) and row
+    strides of a multiple of 16 bytes (D padded to a multiple of 8 by
+    :func:`_pad_width`)."""
     name = "flash_attention_stats_ring"
     if _on_cpu(q, k, v):
         return flash_attention_stats_ring_plain(q, k, v, causal, BLOCK_K)
@@ -521,6 +524,19 @@ def flash_attention_stats_ring(q: torch.Tensor, k: torch.Tensor,
         _FLASH_RING(dev, q, k, v, o, m, l, Tq, k.shape[1], H, Dp, D ** -0.5,
                     int(causal))
     return _unpad(o, D), m, l
+
+
+def flash_attention_stats_ring_ctas(D: int) -> Tuple[int, int]:
+    """(CTAs an SM, SMs) of K6b-ring's persistent grid at head width D on
+    the current card, as its launches take them ((0, 0) past 256, where
+    the chunked kernel runs a CTA a tile)."""
+    lib = library()
+    out = (ctypes.c_int * 2)()
+    err = lib.agac_flash_attention_ring_ctas(ctypes.c_int(D), out)
+    if err:
+        raise RuntimeError(f"agac_flash_attention_ring_ctas: CUDA error {err} "
+                           f"({lib.agac_error_string(err).decode()})")
+    return out[0], out[1]
 
 
 def flash_bwd_dq(q, k, v, do, m, l, dvec, causal: bool = True

@@ -893,10 +893,18 @@ def _k6b_ring_one(H, Tq, Tk, D, causal, seed, iters=20, eager_iters=50):
     ``parity.attention_close``; p rounded the other way moves o by one
     ulp of that), l within 1e-5 relative (f32 sums of the same p), m
     within D f32 ulps of the largest |q'| . |k| (the f32 product of f32
-    q' and bf16 k in another order).  Timed beside its plain version and
-    SDPA's flash forward with its logsumexp
-    (``aten._scaled_dot_product_flash_attention``) on bf16 q, k, v, where
-    it takes the width (the kernel's q is f32, SDPA's bf16)."""
+    q' and bf16 k in another order); and, against a one-hot k (key j
+    picks column j % D, so that every score is one exact product), m
+    equal to the plain version's value for value, which holds q' whole
+    (a q' short of its lo term moves m by about 2**-17 of it).  Timed
+    beside its plain version and SDPA's flash forward with its logsumexp
+    (``aten._scaled_dot_product_flash_attention``) on bf16 q, k, v, the
+    width zero-padded to a multiple of 8 with the true width's scale
+    (the zero columns add nothing to q'.k^T); the kernel's q is f32,
+    SDPA's bf16.  The record gives the CTAs an SM the kernel's
+    persistent grid takes at this width, and where D is no multiple of 8
+    the kernel's time on the inputs padded beforehand
+    (``padded_inputs_ms``), without the wrapper's padding copies."""
     import numpy as np
     import torch
 
@@ -930,13 +938,24 @@ def _k6b_ring_one(H, Tq, Tk, D, causal, seed, iters=20, eager_iters=50):
     check(all(torch.equal(a, b) for a, b in zip(again, (o, m, l))),
           f"{K6B_RING} {shape}: two runs differ")
     del po, pm, pl, mag, again
-    qb = q.to(torch.bfloat16).unsqueeze(0)
-    kh, vh = k.unsqueeze(0), v.unsqueeze(0)
+    onehot = torch.nn.functional.one_hot(
+        torch.arange(Tk, device="cuda") % D, D).to(torch.bfloat16)
+    k1 = onehot.expand(H, Tk, D).contiguous()
+    m1 = ca.flash_attention_stats_ring(q, k1, v, causal)[1]
+    pm1 = ca.flash_attention_stats_ring_plain(q, k1, v, causal, blk)[1]
+    m1_differ = int((m1 != pm1).sum())
+    check(m1_differ == 0, f"{K6B_RING} {shape}: against a one-hot k, m "
+          f"differs from its plain version's at {m1_differ} rows (each "
+          f"score is one exact product of f32 q')")
+    del k1, m1, pm1
+    pad = -D % 8
+    qb, kh, vh = (torch.nn.functional.pad(x.to(torch.bfloat16), (0, pad))
+                  .unsqueeze(0) for x in (q, k, v))
     library = None
-    if D % 8 == 0 and D <= 256:
+    if D + pad <= 256:
         def library():
             return torch.ops.aten._scaled_dot_product_flash_attention(
-                qb, kh, vh, 0.0, causal)
+                qb, kh, vh, 0.0, causal, scale=D ** -0.5)
     # live (query, key) pairs: the causal mask is relative (key <= query)
     pairs = H * (sum(min(i + 1, Tk) for i in range(Tq)) if causal
                  else Tq * Tk)
@@ -958,9 +977,16 @@ def _k6b_ring_one(H, Tq, Tk, D, causal, seed, iters=20, eager_iters=50):
                    library, iters=iters, eager_iters=eager_iters),
          "library_note": "SDPA flash forward with logsumexp "
                          "(aten._scaled_dot_product_flash_attention) on "
-                         "bf16 q, k, v: the kernel's q is f32"},
+                         "bf16 q, k, v, D zero-padded to a multiple of 8 "
+                         "at the true width's scale: the kernel's q is "
+                         "f32"},
         (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
     rec["f32_fma_scores_bound_ms"] = max(t_bytes, t_f32_fma)
+    rec["ctas_per_sm"], rec["sms"] = ca.flash_attention_stats_ring_ctas(D)
+    if pad:
+        qp, kp, vp = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
+        rec["padded_inputs_ms"] = time_device(
+            lambda: ca.flash_attention_stats_ring(qp, kp, vp, causal), iters)
     rec["max_ulps_of_magnitude"] = ulps
     rec["l_max_rel_err"] = l_err
     rec["m_max_abs_err"] = m_err

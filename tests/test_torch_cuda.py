@@ -1104,6 +1104,196 @@ def test_wgmma_sums_as_mma_sync(cuda, tmp_path):
                     f"difference {worst!r}")
 
 
+_SPLIT_PROBE_SRC = r"""
+#include "flash_common.cuh"
+using namespace agac_flash;
+
+// element (r, c) of a 64-row box of 128-byte rows, 128-byte swizzle
+__device__ void put(uint8_t* box, int r, int c, __nv_bfloat16 x) {
+  *reinterpret_cast<__nv_bfloat16*>(
+      box + r * 128 + (((c / 8) ^ (r % 8)) * 16) + (c % 8) * 2) = x;
+}
+
+// term t (0 hi, 1 mid, 2 lo) of q[r][c] and q[r][c + 1] times scale, as
+// the A fragment's pair
+__device__ uint32_t term_pair(const float* q, int r, int c, float scale,
+                              int t) {
+  const SplitTerms a = split_q(q[r * 64 + c], scale);
+  const SplitTerms b = split_q(q[r * 64 + c + 1], scale);
+  return t == 0 ? pack_raw(a.hi, b.hi)
+       : t == 1 ? pack_raw(a.mid, b.mid) : pack_raw(a.lo, b.lo);
+}
+
+// One problem a CTA of one warpgroup: f32 q [64 x 64] (rows x the
+// contraction), bf16 k [64 x 64] stored [n][k], f32 c [64 x 64].  q' =
+// q * scale is split into hi, mid and lo by store_q_split (as K6b-ring
+// writes them); from the same c, `steps` k16 steps, each summing lo, mid
+// and hi in that order, by wgmma m64n64k16 with both operands in shared
+// memory and by the 4 warps x 8 mma.sync m16n8k16 covering the tile, the
+// A fragments split in registers by split_q.
+__global__ void __launch_bounds__(128) probe(
+    const float* q_all, const __nv_bfloat16* k_all, const float* c_all,
+    float scale, int steps, float* out_w, float* out_m) {
+  using L = SwizzledTile<64>;
+  __shared__ __align__(1024) uint8_t qs[3 * L::kBytes];
+  __shared__ __align__(1024) uint8_t ks[L::kBytes];
+  const int p = blockIdx.x;
+  const float* q = q_all + p * 64 * 64;
+  const __nv_bfloat16* k = k_all + p * 64 * 64;
+  const float* c = c_all + p * 64 * 64;
+  for (int i = threadIdx.x; i < 64 * 8; i += 128) {
+    float x[8];
+    for (int e = 0; e < 8; ++e) x[e] = q[i * 8 + e];
+    store_q_split<64>(qs, i / 8, i % 8, x, scale);
+  }
+  for (int i = threadIdx.x; i < 64 * 64; i += 128)
+    put(ks, i / 64, i % 64, k[i]);
+  fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp + lane / 4, tq = lane % 4;
+
+  float dw[8][4], dm[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dw[j][i] = dm[j][i] =
+          c[(r0 + 8 * (i >> 1)) * 64 + 8 * j + 2 * tq + (i & 1)];
+
+  const uint64_t k_desc = gmma_desc<128>(ks);
+  fence_acc(dw);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    if (kk < steps) {
+      const uint64_t step = L::k_step(kk) >> 4;
+      wgmma_ss64<0>(dw, gmma_desc<128>(qs + 2 * L::kBytes) + step,
+                    k_desc + step);
+      wgmma_ss64<0>(dw, gmma_desc<128>(qs + L::kBytes) + step, k_desc + step);
+      wgmma_ss64<0>(dw, gmma_desc<128>(qs) + step, k_desc + step);
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dw);
+
+  for (int kk = 0; kk < steps; ++kk)
+    for (int t = 2; t >= 0; --t) {
+      const int c0 = 16 * kk + 2 * tq;
+      const uint32_t af[4] = {term_pair(q, r0, c0, scale, t),
+                              term_pair(q, r0 + 8, c0, scale, t),
+                              term_pair(q, r0, c0 + 8, scale, t),
+                              term_pair(q, r0 + 8, c0 + 8, scale, t)};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const __nv_bfloat16* b = k + (8 * nt + lane / 4) * 64 + c0;
+        mma_bf16(dm[nt], af, load_pair(b), load_pair(b + 8));
+      }
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int at = (r0 + 8 * (i >> 1)) * 64 + 8 * j + 2 * tq + (i & 1);
+      out_w[p * 64 * 64 + at] = dw[j][i];
+      out_m[p * 64 * 64 + at] = dm[j][i];
+    }
+}
+
+extern "C" int run_probe(const void* q, const void* k, const void* c,
+                         int problems, float scale, int steps, void* out_w,
+                         void* out_m) {
+  probe<<<problems, 128>>>(
+      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const float*>(c), scale, steps,
+      static_cast<float*>(out_w), static_cast<float*>(out_m));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: what each problem of the split probe is, by its index mod 4
+_SPLIT_KINDS = ("random", "cancelling", "tiny q' (subnormal lo . k)",
+                "rows of mixed scale")
+
+
+def _split_probe_operands(problems, seed):
+    """f32 q [P, 64, 64], bf16 k [P, 64, 64] ([n][k]) and f32 c [P, 64,
+    64], in four kinds by problem index mod 4: random (q over 2^-12..2^12
+    with every mantissa bit, k over 2^-12..2^12, c over 2^-20..2^20);
+    cancelling (the second half of each k16 step repeats the first with k
+    of the other sign, exactly or to a bf16 ulp, and c is minus a row's
+    first step at scale 1/8, whole or half); tiny q (2^-135..2^-95, so hi itself may
+    be subnormal and lo . k is subnormal or zero; c 0 or 2^-140..2^-110);
+    and rows of mixed scale (each row of q times its own 2^-120..2^30, c
+    with it), where lo . k lies far below hi . k of another row's
+    scale."""
+    rng = np.random.default_rng(seed)
+    q = _wide(rng, (problems, 64, 64), -12, 12)
+    k = _wide(rng, (problems, 64, 64), -12, 12)
+    c = _wide(rng, (problems, 64, 64), -20, 20)
+    for p in range(2, problems, 4):
+        q[p] = _wide(rng, (64, 64), -135, -95)
+        c[p] = _wide(rng, (64, 64), -140, -110) * rng.choice([0.0, 1.0])
+    for p in range(3, problems, 4):
+        rows = 2.0 ** rng.integers(-120, 30, (64, 1))
+        q[p] = (q[p] * rows).astype(np.float32)
+        c[p] = (c[p] * rows).astype(np.float32)
+    k = torch.from_numpy(k).to(torch.bfloat16)
+    for p in range(1, problems, 4):
+        nudge = torch.from_numpy(
+            rng.choice([1.0, 1.0078125], (64, 32))).to(torch.bfloat16)
+        for k0 in range(0, 64, 16):
+            q[p, :, k0 + 8:k0 + 16] = q[p, :, k0:k0 + 8]
+            k[p, :, k0 + 8:k0 + 16] = -k[p, :, k0:k0 + 8] * nudge[
+                :, k0 // 2:k0 // 2 + 8]
+        first = 0.125 * (q[p, :, :16].astype(np.float64)
+                         @ k[p, :, :16].double().numpy().T)
+        c[p] = (-first * rng.choice([1.0, 0.5], (64, 64))).astype(np.float32)
+    return torch.from_numpy(q), k, torch.from_numpy(c)
+
+
+def test_wgmma_sums_split_terms_as_mma_sync(cuda, tmp_path):
+    """The bit contract of K6b-ring's score product: q' = q * scale split
+    into hi, mid and lo bf16 terms as the kernel splits them
+    (csrc/flash_common.cuh's split_q and store_q_split), one and four
+    k16 steps each summing lo, mid and hi into one f32 accumulator, by
+    wgmma m64n64k16 from shared memory, give every f32 bit that mma.sync
+    m16n8k16 gives in the same order, over 256 problems: random,
+    cancelling, q' so small that lo . k is subnormal, and rows of mixed
+    scale (_split_probe_operands)."""
+    src = tmp_path / "split_probe.cu"
+    src.write_text(_SPLIT_PROBE_SRC)
+    lib = tmp_path / "split_probe.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                    f"-I{build.CSRC}", str(src), "-o", str(lib)],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    problems = 256
+    q, k, c = (x.to(cuda) for x in _split_probe_operands(problems, 0))
+    for scale in (40 ** -0.5, 0.125):
+        for steps in (1, 4):
+            w, m = (torch.full((problems, 64, 64), float("nan"), device=cuda)
+                    for _ in range(2))
+            ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (q, k, c)]
+            assert so.run_probe(*ptrs, ctypes.c_int(problems),
+                                ctypes.c_float(scale), ctypes.c_int(steps),
+                                ctypes.c_void_p(w.data_ptr()),
+                                ctypes.c_void_p(m.data_ptr())) == 0
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(m).all()), (scale, steps)
+            diff = w.view(torch.int32) != m.view(torch.int32)
+            if bool(diff.any()):
+                p, r, col = (int(i) for i in diff.nonzero()[0])
+                kinds = sorted({_SPLIT_KINDS[int(i) % 4]
+                                for i in diff.nonzero()[:, 0]})
+                raise AssertionError(
+                    f"scale {scale}, {steps} k16 steps: {int(diff.sum())} "
+                    f"of {diff.numel()} sums differ, in problems of kinds "
+                    f"{kinds}; first at problem {p}, row {r}, column {col}: "
+                    f"wgmma {float(w[p, r, col])!r}, mma.sync "
+                    f"{float(m[p, r, col])!r}")
+
+
 @pytest.mark.parametrize("T,S,D", [(2048, 128, 128), (1024, 64, 160),
                                    (64, 8192, 32)])
 @pytest.mark.parametrize("causal", [True, False])
@@ -1415,6 +1605,44 @@ def test_ring_stats_kernel_matches_plain_version(cuda, H, Tq, Tk, D, causal):
     assert float((m - pm).abs().max()) <= D * 2.0 ** -24 * s_mag
     again = ca.flash_attention_stats_ring(q, k, v, causal)
     assert all(torch.equal(a, b) for a, b in zip(again, (o, m, l)))
+
+
+@pytest.mark.parametrize("H,Tq,Tk,D,causal", RING_SHAPES)
+def test_ring_stats_kernel_scores_are_exact_f32_products(cuda, H, Tq, Tk, D,
+                                                         causal):
+    """K6b-ring's s is q'.k^T with q' in full f32: against a one-hot k
+    (key j picks column j % D), where each score is one product, q' times
+    1, and so exact in any order of the sums, the kernel's m equals its
+    plain version's value for value.  A q' short of any of its three bf16
+    terms moves m by about 2**-17 of it, which the tolerances of
+    test_ring_stats_kernel_matches_plain_version, made for another order
+    of the sums, let through."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(H + Tq + Tk + D + 1)
+    q = torch.randn(H, Tq, D, device=cuda, generator=g)
+    v = torch.randn(H, Tk, D, device=cuda, generator=g).to(torch.bfloat16)
+    onehot = torch.nn.functional.one_hot(
+        torch.arange(Tk, device=cuda) % D, D).to(torch.bfloat16)
+    k = onehot.expand(H, Tk, D).contiguous()
+    o, m, l = ca.flash_attention_stats_ring(q, k, v, causal)
+    po, pm, pl = ca.flash_attention_stats_ring_plain(q, k, v, causal, BLOCK_K)
+    assert torch.equal(m, pm)
+    mag = ca.flash_attention_stats_ring_plain(q, k, v.abs(), causal,
+                                              BLOCK_K)[0]
+    assert parity.attention_close(_host(o), _host(po), _host(mag))
+    np.testing.assert_allclose(_host(l), _host(pl), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("D", [32, 160, 288])
+def test_ring_stats_kernel_with_no_keys(cuda, D):
+    """A block pair with Tk = 0 folds no K block: o zero, m -1e30 and l 0,
+    the plain version's values, on both kernels (TMA up to 256, chunked
+    past it)."""
+    q = torch.randn(3, 70, D, device=cuda)
+    k = v = torch.zeros(3, 0, D, device=cuda, dtype=torch.bfloat16)
+    got = ca.flash_attention_stats_ring(q, k, v, True)
+    want = ca.flash_attention_stats_ring_plain(q, k, v, True, BLOCK_K)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_ring_stats_kernel_refuses_what_it_cannot_take(cuda):

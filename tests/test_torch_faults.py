@@ -44,3 +44,11 @@ def test_every_forward_fault_is_planted_in_the_flash_forward():
     assert k6 == {"fwd_v_from_previous_k_block",
                   "fwd_walk_stops_one_k_block_short", "fwd_l_not_rescaled",
                   "wide_head_fwd_drops_upper_columns"}
+
+
+def test_every_ring_fault_is_planted_in_the_ring_forward():
+    ring = {name for name, (src, _, _) in FAULTS.items()
+            if src.endswith("csrc/flash_attention_ring.cu")}
+    assert ring == {"ring_drops_lo_term", "ring_walk_stops_one_k_block_short",
+                    "ring_l_not_rescaled",
+                    "wide_head_ring_drops_upper_columns"}
