@@ -1,7 +1,10 @@
 """Checks of the kernels that need the card: two that need more than
 one build, and a profile of the train step.
 
-``ab TREE_A TREE_B``: device times of K3 (both entries, H = 128 and 256),
+``ab TREE_A TREE_B``: device times of K2 (``chip_smoke.py``'s two shapes
+of it, 16384 x 16 and 1,000,000 x 4; also on inputs that miss the L2, by
+this checkout's ``chip_smoke.time_cold`` in both trees), of K3 (both
+entries, H = 128 and 256),
 of K10 and K11 (the train command's default shape and the reference's
 own head shape), of K6a, K6b, K7 and K8 apart (``chip_smoke.py``'s three
 shapes of them: T = 64, S = 8192, D = 32; T = 2048, S = 128, D = 128;
@@ -23,9 +26,17 @@ fake one in the backward; and of K6b-ring's o, m and l at 89 points (its
 seven shapes, the card tests' ragged ``RING_SHAPES``, a sweep of three
 heads with Tq, Tk from 1 to 200 and D from 16 to 288, causal and not,
 and q scaled by 2^-100 or 2^-120, where the lo term of q' is
-subnormal).  First it runs the card tests ``test_wgmma_sums_as_mma_sync``
+subnormal); of K9's dq, dk, dv at its six timed shapes, on the plain
+forward's stats like K7's and K8's; of K2's int32 weights at its two
+shapes, over E = 1..40 and 300 at ragged G (with infinities, a NaN,
+wide scores and zeros of both signs in a few rows) and on rows of k
+equal valid scores; and of K3's weights (``forward_cuda``) at H = 128
+and 256, whose epilogue is K2's scalar route (``plan_row``).  First it
+runs the card tests ``test_wgmma_sums_as_mma_sync``
 and ``test_wgmma_sums_split_terms_as_mma_sync`` in TREE_B.  ``ab``
-fails unless the four runs give the same backward digests, the same
+fails unless the four runs give the same backward digests (K7, K8 and
+K9), the same K2 and K3 digests (``k2_digests_equal``,
+``mlp_digests_equal``: scalar f32 arithmetic, no probe needed), the same
 forward digests where the first test passed (wgmma sums as mma.sync, so
 the forward must keep its bits) and the same K6b-ring digests
 (``ring_digests_equal``) where the second did; where forward digests
@@ -35,7 +46,8 @@ m and l in f32 ulps (over the first 256 heads of a point).  This is how
 two versions of a kernel are compared.
 
 ``faults``: plants faults in K11's weight-gradient sums, in K9's sums,
-in K7's and K8's pipeline, in the forward K6a/K6b and in K6b-ring, each
+in K7's and K8's pipeline, in the forward K6a/K6b, in K6b-ring and in
+K2's quad route, each
 in a copy of this checkout made in a temporary directory,
 and demands that the kernel's card tests and ``chip_smoke.py``'s check
 of it fail on every one, the latter at every shape where the fault
@@ -88,11 +100,18 @@ changes the result:
   producer and consumers fold one K block fewer (never none);
   ``ring_l_not_rescaled``, l misses its alpha rescale;
   ``wide_head_ring_drops_upper_columns``, p.v stops after two 64-column
-  boxes (a change at D = 160 only).
+  boxes (a change at D = 160 only);
+- K2's quad route (the card tests ``-k quantizer_kernel``; ``chip_smoke.py``'s
+  ``_k2_one`` at 16384 x 16 and 1,000,000 x 4): ``quad_drops_lane_pair_level``,
+  the sum misses the level inside the lane that adds cell j + 2 to cell
+  j; ``quad_rounds_down``, ``rintf`` becomes ``floorf``;
+  ``quad_writes_last_quad_as_zero``, the last quad of each row is written
+  as 0.
 
 ``sass [SOURCE ...]``: compiles kernel sources (default K6b-ring's) with
 ``-Xptxas -v`` and dumps their SASS: registers, stack and spills a
-kernel, every ptxas warning, HGMMA and HMMA counts, and for K6b-ring's
+kernel, every ptxas warning, HGMMA and HMMA counts, 128-bit global loads
+and stores (``LDG.E.128``, ``STG.E.128``), and for K6b-ring's
 source the CTAs an SM its launches take at each width class; exits 1 on
 a warning or on a spill in a wgmma kernel.
 
@@ -183,16 +202,32 @@ PKG = "aws_global_accelerator_controller_tpu_torch"
 
 # run inside a checkout: prints {"ms": {row: device ms}, "digests":
 # {name: sha256}} of its kernels, and saves the forward's outputs to the
-# file named by its one argument
+# file named by its first argument; its second names the chip_smoke.py
+# whose ``time_cold`` times K2 on inputs that miss the L2 (the same timer
+# in both trees)
 _TIME = r"""
-import hashlib, json, sys, torch, chip_smoke as cs
+import hashlib, importlib.util, json, sys, torch, chip_smoke as cs
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     forward_cuda, score_rows_cuda)
 from aws_global_accelerator_controller_tpu_torch.ops import cuda_head as ch
 from aws_global_accelerator_controller_tpu_torch.ops import cuda_attention as ca
+from aws_global_accelerator_controller_tpu_torch.ops.cuda_weights import (
+    plan_weights_cuda)
 from aws_global_accelerator_controller_tpu_torch.kernels import build
 build.library()
-out = {}
+out, digests, saved = {}, {}, {}
+spec = importlib.util.spec_from_file_location("timers", sys.argv[2])
+timers = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timers)
+
+
+def digest(*xs):
+    h = hashlib.sha256()
+    for x in xs:
+        h.update((x.float() + 0.0).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 for H in (128, 256):
     p = cs._mlp_params(3, H)
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -205,6 +240,42 @@ for H in (128, 256):
         lambda: forward_cuda(p, x, m))
     out[f"fused_mlp_scores H={H}"] = cs.time_device(
         lambda: score_rows_cuda(p, rows))
+    # K3's weights: its epilogue is K2's scalar route, plan_row
+    digests[f"mlp H={H}"] = digest(forward_cuda(p, x, m))
+
+
+# K2: times and digests at chip_smoke.py's two shapes of it, digests over
+# E = 1..40 and 300 at ragged G (edge values in a few rows: infinities, a
+# NaN, scores 40 times wider, zeros of both signs) and on rows of k equal
+# valid scores (k = 0..E)
+def k2_inputs(G, E, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = torch.randn(G, E, device="cuda", generator=g) * 3
+    n = torch.randint(0, E + 1, (G, 1), device="cuda", generator=g)
+    m = torch.arange(E, device="cuda")[None, :] < n
+    m[::7] = False
+    return s, m, g
+
+
+for G, E, seed in ((cs.FLEET_GROUPS, cs.FLEET_CAP, 1),
+                   (cs.RESIDENT_GROUPS, cs.RESIDENT_CAP, 2)):
+    s, m, _ = k2_inputs(G, E, seed)
+    out[f"plan_weights {G}x{E}"] = cs.time_device(
+        lambda: plan_weights_cuda(s, m))
+    out[f"plan_weights cold {G}x{E}"] = timers.time_cold(
+        plan_weights_cuda, (s, m))
+    digests[f"k2 {G}x{E}"] = digest(plan_weights_cuda(s, m))
+for E in (*range(1, 41), 300):
+    G = 997 + 13 * E
+    s, m, g = k2_inputs(G, E, 100 + E)
+    s[3, 0], s[5, -1], s[8, 0] = float("inf"), float("-inf"), float("nan")
+    s[10::17] *= 40
+    s[12], s[12, ::2] = 0.0, -0.0
+    digests[f"k2 sweep E={E}"] = digest(plan_weights_cuda(s, m))
+    k = torch.arange(G, device="cuda")[:, None] % (E + 1)
+    m = torch.arange(E, device="cuda")[None, :] < k
+    s = (torch.randn(G, 1, device="cuda", generator=g) * 5).expand(G, E)
+    digests[f"k2 equal E={E}"] = digest(plan_weights_cuda(s, m))
 for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
     x, w1, b1, w2, b2, ds = cs._head_inputs(T, S, D, H, 13)
     shape = f"T={T} S={S} D={D} H={H}"
@@ -212,16 +283,6 @@ for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
         lambda: ch.score_head_forward(x, w1, b1, w2, b2))
     out["score_head_bwd " + shape] = cs.time_device(
         lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))
-digests, saved = {}, {}
-
-
-def digest(*xs):
-    h = hashlib.sha256()
-    for x in xs:
-        h.update((x.float() + 0.0).cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
 for T, S, D in ((64, 8192, 32), (2048, 128, 128), (1024, 64, 160)):
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(T, S, D, device="cuda", generator=g)
@@ -320,6 +381,11 @@ for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
     dvec = ca.attention_dvec(o, do)
     out[f"flash_bwd_dqkv T={T} S={S} D={D}"] = cs.time_device(
         lambda: ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec))
+    # K9 on the plain forward's stats, alike in both trees
+    o, m, l = ca.flash_attention_stats_plain(q, k, v, True, ca.BLOCK_K)
+    dvec = ca.attention_dvec(o, do)
+    digests[f"bwd dqkv T={T} S={S} D={D}"] = digest(
+        *ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec))
 torch.save(saved, sys.argv[1])
 print(json.dumps({"ms": out, "digests": digests}))
 """
@@ -345,6 +411,7 @@ _DQKV_SRC = f"{PKG}/csrc/flash_attention_dqkv.cu"
 _BWD_SRC = f"{PKG}/csrc/flash_attention_bwd.cu"
 _FWD_SRC = f"{PKG}/csrc/flash_attention.cu"
 _RING_SRC = f"{PKG}/csrc/flash_attention_ring.cu"
+_K2_SRC = f"{PKG}/csrc/plan_weights.cu"
 #: name -> (source, a text of it once, the faulty replacement)
 FAULTS = {
     "half_partials": (
@@ -438,6 +505,20 @@ FAULTS = {
         _RING_SRC,
         "  constexpr int kPvGroups = L::kBoxes;",
         "  constexpr int kPvGroups = L::kBoxes < 2 ? L::kBoxes : 2;"),
+    "quad_drops_lane_pair_level": (
+        _K2_SRC,
+        "  const float pair0 = t[0] + t[2], pair1 = t[1] + t[3];",
+        "  const float pair0 = t[0], pair1 = t[1];"),
+    "quad_rounds_down": (
+        _K2_SRC,
+        "rintf(e[c] / den * agac::kMaxWeight)",
+        "floorf(e[c] / den * agac::kMaxWeight)"),
+    "quad_writes_last_quad_as_zero": (
+        _K2_SRC,
+        "  if (mine) *reinterpret_cast<int4*>(out + at) = w;",
+        "  if (mine)\n"
+        "    *reinterpret_cast<int4*>(out + at) =\n"
+        "        quad == E / 4 - 1 ? make_int4(0, 0, 0, 0) : w;"),
 }
 #: source -> (card tests (-k), chip_smoke function, its shapes, how many
 #: of them each fault must fail)
@@ -458,6 +539,8 @@ CHECKS = {
                 ((4096, 128, 128, 32, True, 18),
                  (64, 64, 128, 32, False, 21),
                  (256, 128, 128, 160, True, 24)), 3),
+    _K2_SRC: ("quantizer_kernel", "_k2_one",
+              ((16384, 16, 1), (1000000, 4, 2)), 2),
 }
 
 
@@ -531,8 +614,8 @@ def ab(tree_a: str, tree_b: str) -> int:
         for i, (name, tree) in enumerate((("A", tree_a), ("B", tree_b),
                                           ("B", tree_b), ("A", tree_a))):
             saved = str(Path(tmp) / f"run{i}.pt")
-            r = _run([sys.executable, "-c", _TIME, saved],
-                     Path(tree).resolve())
+            r = _run([sys.executable, "-c", _TIME, saved,
+                      str(ROOT / "chip_smoke.py")], Path(tree).resolve())
             if r.returncode:
                 print(r.stdout, r.stderr[-4000:], file=sys.stderr)
                 return 1
@@ -542,7 +625,9 @@ def ab(tree_a: str, tree_b: str) -> int:
                               "digests": {k: v for k, v in
                                           res["digests"].items()
                                           if "S=3 " not in k
-                                          and "H=3 " not in k}}),
+                                          and "H=3 " not in k
+                                          and not k.startswith(
+                                              ("k2 sweep", "k2 equal"))}}),
                   flush=True)
         mean = {name: {k: sum(r["ms"][k] for r in runs
                               if r["tree"] == name) / 2
@@ -558,6 +643,8 @@ def ab(tree_a: str, tree_b: str) -> int:
         bwd_differ = [k for k in differ if k.startswith("bwd ")]
         fwd_differ = [k[4:] for k in differ if k.startswith("fwd ")]
         ring_differ = [k for k in differ if k.startswith("ring ")]
+        k2_differ = [k for k in differ if k.startswith("k2 ")]
+        mlp_differ = [k for k in differ if k.startswith("mlp ")]
         result = {"mean_ms": mean, "b_over_a": ratio,
                   "bwd_digests_equal": not bwd_differ,
                   "fwd_digests_equal": not fwd_differ,
@@ -569,7 +656,12 @@ def ab(tree_a: str, tree_b: str) -> int:
                   "ring_points": sum(k.startswith("ring ")
                                      for k in runs[0]["digests"]),
                   "ring_points_differing": len(ring_differ),
-                  "ring_must_be_equal": ring_probe_passed}
+                  "ring_must_be_equal": ring_probe_passed,
+                  "k2_digests_equal": not k2_differ,
+                  "k2_points": sum(k.startswith("k2 ")
+                                   for k in runs[0]["digests"]),
+                  "k2_differing_first": k2_differ[:10],
+                  "mlp_digests_equal": not mlp_differ}
         # the parent (A, run 1) against this tree (B, run 2)
         if fwd_differ:
             result["fwd_differing_first"] = fwd_differ[:10]
@@ -581,7 +673,8 @@ def ab(tree_a: str, tree_b: str) -> int:
                 runs[0]["saved"], runs[1]["saved"], ring_differ,
                 ("o", "m", "l"))
         print(json.dumps(result), flush=True)
-    ok = (not bwd_differ and (not fwd_differ or not probe_passed)
+    ok = (not bwd_differ and not k2_differ and not mlp_differ
+          and (not fwd_differ or not probe_passed)
           and (not ring_differ or not ring_probe_passed))
     return 0 if ok else 1
 
@@ -1144,7 +1237,8 @@ def sass(sources=(_RING_SRC,)) -> int:
     """Build checks of kernel sources with the card's toolkit: ``nvcc
     -Xptxas -v`` (registers, stack and spills a kernel, and every ptxas
     warning, such as C7515's serialised wgmma) and ``cuobjdump -sass`` of
-    the object (HGMMA and HMMA instructions a kernel); for K6b-ring's
+    the object (HGMMA and HMMA instructions, and 128-bit global loads and
+    stores, ``LDG.E.128`` and ``STG.E.128``, a kernel); for K6b-ring's
     source also the CTAs an SM its launches take at each width class.
     One JSON object a kernel; exits 1 on a warning or on a spill in a
     wgmma kernel (the mma.sync kernels kept past D = 256 are reported:
@@ -1186,6 +1280,8 @@ def sass(sources=(_RING_SRC,)) -> int:
                 if fn in kernels:
                     kernels[fn]["hgmma"] = part.count("HGMMA")
                     kernels[fn]["hmma"] = part.count("HMMA")
+                    kernels[fn]["ldg128"] = part.count("LDG.E.128")
+                    kernels[fn]["stg128"] = part.count("STG.E.128")
             names = subprocess.run([str(nvcc.with_name("cu++filt"))],
                                    input="\n".join(kernels),
                                    capture_output=True, text=True)
@@ -1217,7 +1313,7 @@ def main(argv=None) -> int:
     p_ab.add_argument("tree_b")
     p_faults = sub.add_parser("faults",
                               help="plant faults in K11, K9, K7, K8, "
-                                   "K6a/K6b and K6b-ring")
+                                   "K6a/K6b, K6b-ring and K2")
     p_faults.add_argument("names", nargs="*", metavar="NAME",
                           help="faults to plant (default: all): "
                                + ", ".join(FAULTS))

@@ -49,6 +49,7 @@ from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
 )
 from aws_global_accelerator_controller_tpu_torch.ops import (
     cuda_attention as ca,
+    cuda_weights,
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_head import (
     score_head,
@@ -111,18 +112,105 @@ def test_probe_kernel_doubles(cuda):
     assert torch.equal(tdevice.probe_double(x), x * 2)
 
 
-@pytest.mark.parametrize("G,E", [(64, 4), (48, 16), (32, 32), (16, 7),
-                                 (9, 40), (100_000, 4)])
-def test_quantizer_kernel_matches_plain_version(cuda, G, E):
-    rng = np.random.default_rng(G + E)
+#: widths of K2's sweep: its quad route (E a multiple of 4 up to 32), its
+#: scalar route on either side, and past one warp
+QUANTIZER_E = (1, 3, 4, 8, 12, 16, 20, 28, 32, 33, 40, 300)
+
+
+def _quantizer_cta_rows(E):
+    """Rows one CTA of K2 plans (``csrc/plan_weights.cu``: 256 threads;
+    the quad route a row on row_width(E) / 4 lanes, the scalar route on
+    row_width(E) lanes)."""
+    width = 1
+    while width < min(E, 32):
+        width *= 2
+    quad = E % 4 == 0 and E <= 32
+    return 256 // (width // 4 if quad else width)
+
+
+def _quantizer_inputs(G, E, seed, device):
+    rng = np.random.default_rng(seed)
     s = torch.from_numpy((rng.standard_normal((G, E)) * 3)
-                         .astype(np.float32)).to(cuda)
+                         .astype(np.float32)).to(device)
     m = torch.from_numpy(np.arange(E)[None, :]
-                         < rng.integers(0, E + 1, (G, 1))).to(cuda)
+                         < rng.integers(0, E + 1, (G, 1))).to(device)
     m[::5] = False
+    return s, m
+
+
+@pytest.mark.parametrize("G,E", [(64, 4), (48, 16), (32, 32), (16, 7),
+                                 (9, 40), (100_000, 4)]
+                         + [(g, E) for E in QUANTIZER_E
+                            for g in ("1", "cta-1", "cta+1", "1000003")])
+def test_quantizer_kernel_matches_plain_version(cuda, G, E):
+    """K2 against its plain version (weights +-1 on <= 0.5% of cells) at
+    every route's widths and at 1 row, a CTA's rows +- 1 and a million
+    and three rows; masked cells and all-masked rows (every fifth) 0."""
+    if isinstance(G, str):
+        G = {"1": 1, "cta-1": _quantizer_cta_rows(E) - 1,
+             "cta+1": _quantizer_cta_rows(E) + 1, "1000003": 1_000_003}[G]
+    s, m = _quantizer_inputs(G, E, G + E, cuda)
     got = plan_weights_cuda(s, m).cpu().numpy()
     assert parity.weights_close(got, plan_block(s, m).cpu().numpy())
     assert not got[~m.cpu().numpy()].any()
+
+
+@pytest.mark.parametrize("E", QUANTIZER_E)
+def test_quantizer_kernel_rounds_equal_scores_half_to_even(cuda, E):
+    """Rows of k equal valid scores (k from 0 to E, each at a score of its
+    own) are p = 1 / k exactly: 2 equal cells give 127.5, which rounds
+    half to even to 128, 3 give 85.  K2 must equal its plain version
+    exactly on every such row."""
+    rng = np.random.default_rng(E)
+    G = 3 * (E + 1)
+    k = np.arange(G) % (E + 1)
+    cols = rng.permuted(np.tile(np.arange(E), (G, 1)), axis=1)
+    mask = np.zeros((G, E), bool)
+    for g in range(G):
+        mask[g, cols[g, :k[g]]] = True
+    scores = np.where(mask, (rng.standard_normal((G, 1)) * 5)
+                      .astype(np.float32), rng.standard_normal((G, E))
+                      .astype(np.float32) * 9)
+    s = torch.from_numpy(scores).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    got = plan_weights_cuda(s, m)
+    assert torch.equal(got, plan_block(s, m))
+    got = got.cpu().numpy()
+    for g in range(G):
+        want = {0: 0, 1: 255, 2: 128, 3: 85}.get(k[g])
+        if want is not None:
+            assert (got[g][mask[g]] == want).all(), (g, k[g])
+
+
+@pytest.mark.parametrize("E", [4, 8, 12, 16, 20, 24, 28, 32])
+def test_quantizer_kernel_on_misaligned_views(cuda, E):
+    """Views off their 16-byte boundary (scores, mask and out each one
+    cell into a buffer) take K2's scalar route and must give the quad
+    route's weights on an aligned copy bit for bit: the two routes sum a
+    row in one tree.  Through the wrapper (scores and mask off) and
+    through the entry point itself (each of the three off alone, and all
+    three); rows of zeros of both signs take the same weights whatever
+    the sign of their max."""
+    G = 5000
+    s, m = _quantizer_inputs(G, E, E, cuda)
+    s[1::11] = 0.0
+    s[1::11, ::2] = -0.0
+    want = plan_weights_cuda(s, m)
+    s_buf = torch.empty(G * E + 1, device=cuda)
+    s_off = s_buf[1:].view(G, E)
+    s_off.copy_(s)
+    m_buf = torch.empty(G * E + 1, dtype=torch.bool, device=cuda)
+    m_off = m_buf[1:].view(G, E)
+    m_off.copy_(m)
+    assert s_off.data_ptr() % 16 and m_off.data_ptr() % 4
+    assert torch.equal(plan_weights_cuda(s_off, m_off), want)
+    for off in ((True, False, False), (False, True, False),
+                (False, False, True), (True, True, True)):
+        o_buf = torch.full((G * E + 1,), -7, dtype=torch.int32, device=cuda)
+        out = o_buf[1:].view(G, E) if off[2] else o_buf[:-1].view(G, E)
+        cuda_weights._PLAN(cuda, s_off if off[0] else s,
+                           m_off if off[1] else m, out, G, E)
+        assert torch.equal(out, want), off
 
 
 @pytest.mark.parametrize("G,E", [(512, 16), (37, 4), (3, 300)])

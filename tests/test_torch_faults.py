@@ -52,3 +52,10 @@ def test_every_ring_fault_is_planted_in_the_ring_forward():
     assert ring == {"ring_drops_lo_term", "ring_walk_stops_one_k_block_short",
                     "ring_l_not_rescaled",
                     "wide_head_ring_drops_upper_columns"}
+
+
+def test_every_k2_fault_is_planted_in_the_quantizer():
+    k2 = {name for name, (src, _, _) in FAULTS.items()
+          if src.endswith("csrc/plan_weights.cu")}
+    assert k2 == {"quad_drops_lane_pair_level", "quad_rounds_down",
+                  "quad_writes_last_quad_as_zero"}
