@@ -30,13 +30,16 @@ subnormal); of K9's dq, dk, dv at its six timed shapes, on the plain
 forward's stats like K7's and K8's; of K2's int32 weights at its two
 shapes, over E = 1..40 and 300 at ragged G (with infinities, a NaN,
 wide scores and zeros of both signs in a few rows) and on rows of k
-equal valid scores; and of K3's weights (``forward_cuda``) at H = 128
-and 256, whose epilogue is K2's scalar route (``plan_row``).  First it
+equal valid scores; and of K3's weights and row scores on its two
+routes: the tensor-core route at H = 128 and 256 (the timed inputs),
+the CUDA-core route at H = 129 and 512 (2048 x 16 groups).  First it
 runs the card tests ``test_wgmma_sums_as_mma_sync``
 and ``test_wgmma_sums_split_terms_as_mma_sync`` in TREE_B.  ``ab``
 fails unless the four runs give the same backward digests (K7, K8 and
 K9), the same K2 and K3 digests (``k2_digests_equal``,
-``mlp_digests_equal``: scalar f32 arithmetic, no probe needed), the same
+``mlp_digests_equal``: K3's tensor-core route re-sums near-tie sums in
+the CUDA-core route's f32 order, so both routes keep the parent's
+values; no probe needed), the same
 forward digests where the first test passed (wgmma sums as mma.sync, so
 the forward must keep its bits) and the same K6b-ring digests
 (``ring_digests_equal``) where the second did; where forward digests
@@ -46,8 +49,8 @@ m and l in f32 ulps (over the first 256 heads of a point).  This is how
 two versions of a kernel are compared.
 
 ``faults``: plants faults in K11's weight-gradient sums, in K9's sums,
-in K7's and K8's pipeline, in the forward K6a/K6b, in K6b-ring and in
-K2's quad route, each
+in K7's and K8's pipeline, in the forward K6a/K6b, in K6b-ring, in
+K2's quad route and in K3's tensor-core route, each
 in a copy of this checkout made in a temporary directory,
 and demands that the kernel's card tests and ``chip_smoke.py``'s check
 of it fail on every one, the latter at every shape where the fault
@@ -106,9 +109,31 @@ changes the result:
   the sum misses the level inside the lane that adds cell j + 2 to cell
   j; ``quad_rounds_down``, ``rintf`` becomes ``floorf``;
   ``quad_writes_last_quad_as_zero``, the last quad of each row is written
-  as 0.
+  as 0;
+- K3 on the tensor cores (the card tests ``-k "fused_mlp or
+  row_scoring"``; ``chip_smoke.py``'s ``_k3_both`` at H = 128 and 256,
+  whose plan entry is held bit for bit to K2 on the row entry's scores
+  at E = 16, 7 and 300): ``layer2_drops_last_k16_step``, layer 2 sums
+  one k16 step fewer; ``layer3_skips_last_chunk``, the layer-3 dot
+  misses layer 2's last chunk of output columns (64 of 128 at H =
+  128, 128 of 256 at H = 256); ``plan_group_from_first_tile_only``, a
+  group over several tiles (E > 64) is planned on the scores of its
+  first tile alone.
 
-``sass [SOURCE ...]``: compiles kernel sources (default K6b-ring's) with
+``ties``: builds ``csrc/mlp.cu`` alone with its tensor-core route's
+re-summing slack (``near_tie``'s bounds ``kTieX``, ``kTieV``,
+``kTieS``) scaled by 0 (sums taken as the tensor cores give them), 1/16,
+1/4 and 1 (the source as it is); for each, over 2^20 rows at H = 64,
+128, 192 and 256 and four parameter seeds (one with random biases), it
+counts the scores of the tensor-core route (F = 8) that differ from the
+CUDA-core route's (the same MLP with zero features up to F = 17) and
+their largest difference in bf16 ulps, counts the weights of the plan
+entry that differ at E = 16, 7 and 300, and times both entries at
+``chip_smoke.py``'s shapes (A B B A over the scales).  Exits 1 unless
+the source as it is differs nowhere.
+
+``sass [SOURCE ...]``: compiles kernel sources (default K6b-ring's and
+K3's) with
 ``-Xptxas -v`` and dumps their SASS: registers, stack and spills a
 kernel, every ptxas warning, HGMMA and HMMA counts, 128-bit global loads
 and stores (``LDG.E.128``, ``STG.E.128``), and for K6b-ring's
@@ -240,8 +265,18 @@ for H in (128, 256):
         lambda: forward_cuda(p, x, m))
     out[f"fused_mlp_scores H={H}"] = cs.time_device(
         lambda: score_rows_cuda(p, rows))
-    # K3's weights: its epilogue is K2's scalar route, plan_row
-    digests[f"mlp H={H}"] = digest(forward_cuda(p, x, m))
+    # K3 on the tensor cores: weights and scores
+    digests[f"mlp H={H}"] = digest(forward_cuda(p, x, m),
+                                   score_rows_cuda(p, rows))
+# K3 on the CUDA cores: weights and scores
+for H in (129, 512):
+    p = cs._mlp_params(3, H)
+    g = torch.Generator(device="cuda").manual_seed(H)
+    x = torch.randn(2048, cs.FLEET_CAP, cs.F, device="cuda",
+                    generator=g).to(torch.bfloat16)
+    m = torch.rand(2048, cs.FLEET_CAP, device="cuda", generator=g) < 0.8
+    digests[f"mlp H={H}"] = digest(forward_cuda(p, x, m),
+                                      score_rows_cuda(p, x.view(-1, cs.F)))
 
 
 # K2: times and digests at chip_smoke.py's two shapes of it, digests over
@@ -412,6 +447,7 @@ _BWD_SRC = f"{PKG}/csrc/flash_attention_bwd.cu"
 _FWD_SRC = f"{PKG}/csrc/flash_attention.cu"
 _RING_SRC = f"{PKG}/csrc/flash_attention_ring.cu"
 _K2_SRC = f"{PKG}/csrc/plan_weights.cu"
+_MLP_SRC = f"{PKG}/csrc/mlp.cu"
 #: name -> (source, a text of it once, the faulty replacement)
 FAULTS = {
     "half_partials": (
@@ -519,6 +555,23 @@ FAULTS = {
         "  if (mine)\n"
         "    *reinterpret_cast<int4*>(out + at) =\n"
         "        quad == E / 4 - 1 ? make_int4(0, 0, 0, 0) : w;"),
+    "layer2_drops_last_k16_step": (
+        _MLP_SRC,
+        "    for (int k16 = 0; k16 < S::kSteps; ++k16)",
+        "    for (int k16 = 0; k16 < S::kSteps - 1; ++k16)"),
+    "layer3_skips_last_chunk": (
+        _MLP_SRC,
+        "        part[r][m][0] = fmaf(h.x, w.x, part[r][m][0]);\n"
+        "        part[r][m][1] = fmaf(h.y, w.y, part[r][m][1]);\n",
+        "        if (c < S::kChunks - 1) {\n"
+        "        part[r][m][0] = fmaf(h.x, w.x, part[r][m][0]);\n"
+        "        part[r][m][1] = fmaf(h.y, w.y, part[r][m][1]);\n"
+        "        }\n"),
+    "plan_group_from_first_tile_only": (
+        _MLP_SRC,
+        "        if (tq == 0 && lr < rows_here) my_sc[r0 + lr] = s;",
+        "        if (tq == 0 && lr < rows_here && tile == 0) "
+        "my_sc[r0 + lr] = s;"),
 }
 #: source -> (card tests (-k), chip_smoke function, its shapes, how many
 #: of them each fault must fail)
@@ -541,6 +594,7 @@ CHECKS = {
                  (256, 128, 128, 160, True, 24)), 3),
     _K2_SRC: ("quantizer_kernel", "_k2_one",
               ((16384, 16, 1), (1000000, 4, 2)), 2),
+    _MLP_SRC: ("fused_mlp or row_scoring", "_k3_both", ((128,), (256,)), 2),
 }
 
 
@@ -661,7 +715,8 @@ def ab(tree_a: str, tree_b: str) -> int:
                   "k2_points": sum(k.startswith("k2 ")
                                    for k in runs[0]["digests"]),
                   "k2_differing_first": k2_differ[:10],
-                  "mlp_digests_equal": not mlp_differ}
+                  "mlp_digests_equal": not mlp_differ,
+                  "mlp_differing": mlp_differ}
         # the parent (A, run 1) against this tree (B, run 2)
         if fwd_differ:
             result["fwd_differing_first"] = fwd_differ[:10]
@@ -1233,7 +1288,157 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
         return 0
 
 
-def sass(sources=(_RING_SRC,)) -> int:
+#: near_tie's bounds in csrc/mlp.cu, each scaled by ``ties``
+_TIE_TEXTS = (
+    "constexpr float kTieX = 48.0f * 0x1p-24f;",
+    "constexpr float kTieV = 24.0f * 0x1p-24f;",
+    "(kH == 64 ? 6.0f : kH == 128 ? 4.25f : kH == 192 ? 3.5f : 3.0f) *\n"
+    "      0x1p-24f;")
+_TIE_SCALES = (("0", 0.0), ("1/16", 1 / 16), ("1/4", 0.25), ("1", 1.0))
+
+
+def _mlp_library(tmp: Path, scale: float):
+    """``csrc/mlp.cu`` with near_tie's bounds times ``scale``, as an
+    ``nvcc`` process building a shared library of its own."""
+    from .build import NVCC_FLAGS, nvcc_path
+
+    text = (ROOT / _MLP_SRC).read_text()
+    for t in _TIE_TEXTS:
+        if text.count(t) != 1:
+            raise RuntimeError(f"{_MLP_SRC}: no single {t!r}")
+        text = text.replace(t, t.replace("0x1p-24f", f"{scale!r}f * 0x1p-24f"))
+    src, lib = tmp / f"mlp_{scale}.cu", tmp / f"mlp_{scale}.so"
+    src.write_text(text)
+    return lib, subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-shared", "-I",
+         str((ROOT / _MLP_SRC).parent), str(src), "-o", str(lib)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ties() -> int:
+    """The tensor-core route's slack, measured: see the module's
+    docstring."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from ..models.traffic import TrafficPolicyModel
+
+    card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], ROOT, timeout=60)
+    print(card.stdout.strip(), flush=True)
+    vp = ctypes.c_void_p
+    with tempfile.TemporaryDirectory() as tmp:
+        built = {name: _mlp_library(Path(tmp), f)
+                 for name, f in _TIE_SCALES}
+        libs = {}
+        for name, (path, proc) in built.items():
+            log = proc.communicate()[0]
+            if proc.returncode:
+                print(log[-4000:], file=sys.stderr)
+                return 1
+            lib = ctypes.CDLL(str(path))
+            lib.agac_mlp_scores.argtypes = [vp] * 8 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+            lib.agac_mlp_plan.argtypes = [vp] * 9 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                vp]
+            libs[name] = lib
+        order = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+        def call(lib, p, x, m=None):
+            F, H = p["w1"].shape
+            stream = torch.cuda.current_stream().cuda_stream
+            ptrs = [p[k].data_ptr() for k in order]
+            if m is None:
+                out = torch.empty(x.shape[0], device="cuda")
+                rc = lib.agac_mlp_scores(x.data_ptr(), *ptrs, out.data_ptr(),
+                                         x.shape[0], F, H, stream)
+            else:
+                out = torch.empty(m.shape, dtype=torch.int32, device="cuda")
+                rc = lib.agac_mlp_plan(x.data_ptr(), m.data_ptr(), *ptrs,
+                                       out.data_ptr(), m.shape[0],
+                                       m.shape[1], F, H, stream)
+            if rc:
+                raise RuntimeError(f"K3 launch returned {rc}")
+            return out
+
+        def padded(p, x):
+            # the same MLP with zero features up to F = 17: the CUDA-core
+            # route, whose fmaf chains add only exact zeros
+            q, pad = dict(p), 17 - p["w1"].shape[0]
+            q["w1"] = torch.cat([p["w1"],
+                                 p["w1"].new_zeros(pad, p["w1"].shape[1])])
+            return q, torch.cat([x, x.new_zeros(*x.shape[:-1], pad)], dim=-1)
+
+        def ulps(a, b):
+            ref = torch.maximum(a.abs(), b.abs()).double()
+            _, e = torch.frexp(ref)
+            return float(((a - b).abs().double()
+                          / torch.ldexp(torch.ones_like(ref), e - 8)).max())
+
+        bad = False
+        for H in (64, 128, 192, 256):
+            for seed in range(4):
+                p = TrafficPolicyModel(hidden_dim=H).init_params(
+                    torch.Generator().manual_seed(seed), device="cuda")
+                g = torch.Generator("cuda").manual_seed(100 + seed)
+                if seed == 3:
+                    for k in ("b1", "b2", "b3"):
+                        p[k] = (torch.randn(p[k].shape, device="cuda",
+                                            generator=g) * 0.3
+                                ).to(torch.bfloat16)
+                x = torch.randn(1 << 20, cs.F, device="cuda", generator=g)
+                x[::97] *= 30
+                x = x.to(torch.bfloat16)
+                q, x17 = padded(p, x)
+                rec = {"H": H, "seed": seed, "biases": seed == 3}
+                for name, lib in libs.items():
+                    want = call(lib, q, x17)
+                    got = call(lib, p, x)
+                    d = got != want
+                    rec[f"scores_differing {name}"] = int(d.sum())
+                    rec[f"max_ulps {name}"] = ulps(got[d], want[d]) \
+                        if d.any() else 0.0
+                for E in (16, 7, 300):
+                    G = (1 << 18) // E
+                    xe = x[:G * E].view(G, E, cs.F)
+                    m = torch.rand(G, E, device="cuda", generator=g) < 0.8
+                    q, x17 = padded(p, xe)
+                    for name, lib in libs.items():
+                        rec[f"weights_differing E={E} {name}"] = int(
+                            (call(lib, p, xe, m) != call(lib, q, x17, m))
+                            .sum())
+                bad |= any(v for k, v in rec.items()
+                           if k.endswith(" 1") and "differing" in k)
+                print(json.dumps(rec), flush=True)
+        for H in (128, 256):
+            p = cs._mlp_params(3, H)
+            g = torch.Generator(device="cuda").manual_seed(3)
+            x = torch.randn(cs.FLEET_GROUPS, cs.FLEET_CAP, cs.F,
+                            device="cuda", generator=g).to(torch.bfloat16)
+            m = torch.rand(cs.FLEET_GROUPS, cs.FLEET_CAP, device="cuda",
+                           generator=g) < 0.8
+            rows = torch.randn(65536, cs.F, device="cuda",
+                               generator=g).to(torch.bfloat16)
+            ms = {}
+            names = [n for n, _ in _TIE_SCALES]
+            for name in names + names[::-1]:
+                lib = libs[name]
+                for what, fn in (("plan", lambda: call(lib, p, x, m)),
+                                 ("rows", lambda: call(lib, p, rows))):
+                    ms.setdefault(f"{what} {name}", []).append(
+                        cs.time_device(fn))
+            print(json.dumps({"H": H, "ms": {
+                k: sum(v) / len(v) for k, v in ms.items()},
+                "plan": f"{cs.FLEET_GROUPS}x{cs.FLEET_CAP}x{cs.F}",
+                "rows": f"65536x{cs.F}"}), flush=True)
+    return 1 if bad else 0
+
+
+def sass(sources=(_RING_SRC, _MLP_SRC)) -> int:
     """Build checks of kernel sources with the card's toolkit: ``nvcc
     -Xptxas -v`` (registers, stack and spills a kernel, and every ptxas
     warning, such as C7515's serialised wgmma) and ``cuobjdump -sass`` of
@@ -1313,17 +1518,20 @@ def main(argv=None) -> int:
     p_ab.add_argument("tree_b")
     p_faults = sub.add_parser("faults",
                               help="plant faults in K11, K9, K7, K8, "
-                                   "K6a/K6b, K6b-ring and K2")
+                                   "K6a/K6b, K6b-ring, K2 and K3")
     p_faults.add_argument("names", nargs="*", metavar="NAME",
                           help="faults to plant (default: all): "
                                + ", ".join(FAULTS))
     p_sass = sub.add_parser("sass", help="registers, spills, ptxas "
                                          "warnings and tensor-core "
                                          "instructions of kernel sources")
-    p_sass.add_argument("sources", nargs="*", default=[_RING_SRC],
-                        metavar="SOURCE",
+    p_sass.add_argument("sources", nargs="*",
+                        default=[_RING_SRC, _MLP_SRC], metavar="SOURCE",
                         help=f"paths from the checkout (default: "
-                             f"{_RING_SRC})")
+                             f"{_RING_SRC} {_MLP_SRC})")
+    sub.add_parser("ties", help="K3's tensor-core re-summing slack: "
+                                "differing values and times at four "
+                                "scales")
     p_prof = sub.add_parser("profile",
                             help="profile the temporal train step")
     for flag, default in (("steps", 3), ("window", 64), ("groups", 256),
@@ -1367,6 +1575,8 @@ def main(argv=None) -> int:
         return ring(args.device, args.T, args.H, args.D, args.seed)
     if args.cmd == "sass":
         return sass(tuple(args.sources))
+    if args.cmd == "ties":
+        return ties()
     if args.cmd == "profile":
         return profile(args.steps, window=args.window, groups=args.groups,
                        endpoints=args.endpoints, embed=args.embed,

@@ -8,7 +8,11 @@ MLP on packed rows and returns the scores, for the fleet planner.  Both
 launch ``csrc/mlp.cu`` on CUDA tensors (see the bound and design notes
 there) and run their plain versions, :func:`forward_reference` and
 :func:`dense_scores`, on CPU tensors.  The kernel takes any feature
-width F and hidden width H (it tiles both).
+width F and hidden width H (it tiles both): F <= 16 with H in 64, 128,
+192 or 256 on the tensor cores (``wgmma``), every other width on the
+CUDA cores, and both routes give the same values (the tensor cores'
+sums that lie near a bf16 rounding point are summed again in the CUDA
+cores' order).
 
 Arithmetic order, shared by kernel and plain version: bf16 operands,
 f32 accumulation, each matmul rounded to bf16, the bf16 bias added with

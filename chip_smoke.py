@@ -95,8 +95,9 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
     the shapes the paths give it and at widths past one tile (K3 at
     H = 256, the flash kernels at D = 160), and times both (and, where
     one exists, a PyTorch call computing the same function; K9 and K7 +
-    K8 bit for bit on one another's inputs; for K6b-ring also at Tq !=
-    Tk, the zigzag
+    K8 bit for bit on one another's inputs; K3's plan entry bit for bit
+    K2 on its row entry's scores at E = 16, 7 and 300; for
+    K6b-ring also at Tq != Tk, the zigzag
     ring's half blocks); K5 on 4 ranks on the card (``fleet_sharded
     --ring-only``): 200 reduces back to back, each of its own vectors,
     bit for bit against the plain ring on the CPU among the same ranks,
@@ -525,7 +526,18 @@ def _mlp_flops(rows, H=128):
     return 2.0 * rows * (F * H + H * H + H)
 
 
-def _k3(H=128):
+def _mlp_library(params, x):
+    """The dense MLP as three bf16 cuBLAS GEMMs with bias and ReLU
+    (``torch.matmul`` of bf16 tensors): K3's yardstick, timed under one
+    CUDA graph and called nowhere on the path."""
+    import torch
+
+    h = torch.relu(x @ params["w1"] + params["b1"])
+    h = torch.relu(h @ params["w2"] + params["b2"])
+    return (h @ params["w3"] + params["b3"])[..., 0].float()
+
+
+def _k3(H=128, iters=20, eager_iters=50):
     import torch
 
     from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
@@ -544,22 +556,41 @@ def _k3(H=128):
     torch.cuda.synchronize()
     err, frac = check_weights("fused_mlp_plan", got, want)
     wbytes = sum(p.numel() * 2 for p in params.values())
-    return _record(
+
+    def library():
+        # the dense MLP, then softmax + round (no masking of all-masked
+        # rows: they come out NaN)
+        s = _mlp_library(params, x).masked_fill(~mask, float("-inf"))
+        return torch.round(torch.softmax(s, dim=-1) * 255)
+
+    rec = _record(
         "fused_mlp_plan", f"{SRC}/mlp.cu",
         f"{REF}/ops/pallas_mlp.py:49", f"{G}x{E}x{F}, H={H}", err, frac,
         timings(lambda: forward_cuda(params, x, mask),
-                lambda: forward_reference(params, x, mask)),
+                lambda: forward_reference(params, x, mask), library,
+                iters=iters, eager_iters=eager_iters),
         bound_ms(G * E * (F * 2 + 1 + 4) + wbytes, _mlp_flops(G * E, H),
                  BF16_FLOP_PER_S))
+    rec["library_note"] = ("dense MLP in torch, bf16 cuBLAS GEMMs, then "
+                           "softmax + round")
+    return rec
 
 
-def _k3_scores(H=128):
+def _k3_scores(H=128, iters=20, eager_iters=50):
+    """The row entry at the whole-fleet phase's packed rows, against its
+    plain version, a slice of 37 rows bit for bit, and the plan entry's
+    weights bit for bit K2's on the row entry's scores, at E = 16 (full
+    tiles), 7 (a tile's last row idle) and 300 (a group over five
+    tiles)."""
     import torch
 
     from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
         dense_scores,
+        forward_cuda,
         score_rows_cuda,
     )
+    from aws_global_accelerator_controller_tpu_torch.ops.cuda_weights \
+        import plan_weights_cuda
 
     N = 65536   # the whole-fleet phase's packed rows: 8 shards x 8192
     params = _mlp_params(4, H)
@@ -572,18 +603,37 @@ def _k3_scores(H=128):
     part = score_rows_cuda(params, rows[1000:1037])
     check(torch.equal(part, got[1000:1037]),
           "fused_mlp_scores: a row's score depends on its batch")
+    for E in (FLEET_CAP, 7, 300):
+        G = N // E
+        feats = rows[:G * E].view(G, E, F)
+        mask = torch.rand(G, E, device="cuda", generator=g) < 0.8
+        mask[::5] = False
+        check(torch.equal(forward_cuda(params, feats, mask),
+                          plan_weights_cuda(got[:G * E].view(G, E), mask)),
+              f"fused_mlp_plan at E={E}: weights are not K2's on the row "
+              f"entry's scores")
     wbytes = sum(p.numel() * 2 for p in params.values())
+    xb = rows.to(torch.bfloat16)
     rec = _record(
         "fused_mlp_scores", f"{SRC}/mlp.cu", f"{REF}/ops/pallas_mlp.py:49",
         f"{N}x{F}, H={H}", err, float((got != want).float().mean().item()),
         timings(lambda: score_rows_cuda(params, rows),
-                lambda: dense_scores(params, rows)),
+                lambda: dense_scores(params, rows),
+                lambda: _mlp_library(params, xb), iters=iters,
+                eager_iters=eager_iters),
         bound_ms(N * (F * 4 + 4) + wbytes, _mlp_flops(N, H),
                  BF16_FLOP_PER_S))
+    rec["library_note"] = "dense MLP in torch, bf16 cuBLAS GEMMs"
     rec["note"] = ("K3's row-scoring entry: score_rows "
                    f"({REF}/models/traffic.py:89), XLA matmuls in the JAX "
                    "package")
     return rec
+
+
+def _k3_both(H=128, iters=20, eager_iters=50):
+    """K3's two entries at one hidden width."""
+    return (_k3(H, iters, eager_iters),
+            _k3_scores(H, iters, eager_iters))
 
 
 def _k4_one(S, cap, W, K, seed):
@@ -1164,8 +1214,9 @@ def _head_rows():
 
 
 def phase_kernels() -> list:
-    return [_k1(), _k2(), _other_shape(_k3(), _k3(WIDE_HIDDEN)),
-            _other_shape(_k3_scores(), _k3_scores(WIDE_HIDDEN)), _k4(),
+    k3 = _k3_both(), _k3_both(WIDE_HIDDEN)
+    return [_k1(), _k2(), _other_shape(k3[0][0], k3[1][0]),
+            _other_shape(k3[0][1], k3[1][1]), _k4(),
             _k6a(), *_flash_train(), _k9(), *_head_rows(), _k6b_ring()]
 
 

@@ -297,6 +297,156 @@ def test_row_scoring_kernel_is_batch_independent(cuda, params):
         assert torch.equal(score_rows_cuda(params, rows[a:b]), s[a:b])
 
 
+#: slices of a batch that cross K3's 64-row tiles on the tensor cores,
+#: lie inside one, or hold 37 rows
+K3_SLICES = ((0, 1), (63, 64), (64, 65), (127, 128), (128, 129),
+             (129, 130), (63, 129), (5, 42), (0, 37))
+
+
+def _k3_inputs(cuda, G, E, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((G, E, F))
+                         .astype(np.float32)).to(cuda)
+    m = torch.from_numpy(rng.random((G, E)) < 0.8).to(cuda)
+    m[::5] = False
+    return x, m
+
+
+@pytest.mark.parametrize("E", [4, 7, 16, 300])
+@pytest.mark.parametrize("H", [128, 192, 256])
+def test_fused_mlp_tensor_cores_bit_contract(cuda, H, E):
+    """K3 on the tensor cores (F = 8): the plan entry's weights are K2's
+    on the row entry's scores of the same rows, bit for bit (groups of 7
+    and 37 leave a tile's last rows idle, a group of 300 spans five
+    tiles); a row scores the same alone, in 37 rows and across the tile
+    edges (rows 63, 64, 65, 127, 128, 129); and both entries lie within
+    the port's tolerances of their plain versions."""
+    p = TrafficPolicyModel(hidden_dim=H).init_params(
+        torch.Generator().manual_seed(H + E), device=cuda)
+    G = max(6, 2400 // E)
+    x, m = _k3_inputs(cuda, G, E, H * E)
+    build.reset_launch_counts()
+    w = forward_cuda(p, x, m)
+    assert build.launch_counts()["fused_mlp_plan"] == 1
+    rows = x.reshape(-1, F)
+    s = score_rows_cuda(p, rows)
+    assert torch.equal(w, plan_weights_cuda(s.view(G, E), m))
+    assert not w[~m].any()
+    assert parity.weights_close(w.cpu().numpy(),
+                                forward_reference(p, x, m).cpu().numpy())
+    assert parity.scores_close(s.cpu().numpy(),
+                               dense_scores(p, rows).cpu().numpy())
+    for a, b in K3_SLICES:
+        assert torch.equal(score_rows_cuda(p, rows[a:b]), s[a:b]), (a, b)
+    G1 = 1 if E > 64 else 64 // E + 1    # a tile and a group past it
+    assert torch.equal(forward_cuda(p, x[:G1], m[:G1]), w[:G1])
+
+
+def _padded_to_cuda_cores(p, x):
+    """The same MLP with zero features up to F = 17 (the CUDA-core
+    route): w1 gains zero rows, x zero columns."""
+    q = dict(p)
+    pad = 17 - p["w1"].shape[0]
+    q["w1"] = torch.cat([p["w1"], p["w1"].new_zeros(pad, p["w1"].shape[1])])
+    return q, torch.cat([x, x.new_zeros(*x.shape[:-1], pad)], dim=-1)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
+def test_fused_mlp_tensor_cores_equal_cuda_cores(cuda, H, bias):
+    """The tensor-core route (F = 8) gives the CUDA-core route's scores
+    and weights value for value: the same MLP with zero features up to
+    F = 17 takes the CUDA-core route, whose fmaf chains add only exact
+    zeros to the same sums.  200,000 rows, some 30 times larger, with
+    zero or random biases."""
+    p = TrafficPolicyModel(hidden_dim=H).init_params(
+        torch.Generator().manual_seed(H + 11), device=cuda)
+    g = torch.Generator(cuda).manual_seed(H + int(bias))
+    if bias:
+        for k in ("b1", "b2", "b3"):
+            p[k] = (torch.randn(p[k].shape, device=cuda, generator=g)
+                    * 0.3).to(torch.bfloat16)
+    rows = torch.randn(200_000, F, device=cuda, generator=g)
+    rows[::97] *= 30
+    q, rows17 = _padded_to_cuda_cores(p, rows)
+    assert torch.equal(score_rows_cuda(p, rows), score_rows_cuda(q, rows17))
+    x, m = _k3_inputs(cuda, 1000, 37, H)
+    q, x17 = _padded_to_cuda_cores(p, x)
+    assert torch.equal(forward_cuda(p, x, m), forward_cuda(q, x17, m))
+
+
+def test_fused_mlp_plan_entry_at_its_largest_group(cuda):
+    """At H = 256 the tensor-core plan entry takes a group of up to 2752
+    rows (43 tiles beside the weights and h1's copy in shared memory):
+    there it is K2 on the row entry's scores; one row more is refused
+    with a CUDA error, not computed wrong."""
+    p = TrafficPolicyModel(hidden_dim=256).init_params(
+        torch.Generator().manual_seed(5), device=cuda)
+    x, m = _k3_inputs(cuda, 3, 2753, 5)
+    w = forward_cuda(p, x[:, :2752], m[:, :2752])
+    s = score_rows_cuda(p, x[:, :2752].reshape(-1, F))
+    assert torch.equal(w, plan_weights_cuda(s.view(3, 2752), m[:, :2752]))
+    with pytest.raises(build.KernelLaunchError):
+        forward_cuda(p, x, m)
+
+
+@pytest.mark.parametrize("H", [128, 256])
+def test_fused_mlp_row_scores_in_a_batch_of_millions(cuda, H):
+    """A row scores the same in a 2.5M-row batch (a full repack's size)
+    as alone or in a slice of 37."""
+    p = TrafficPolicyModel(hidden_dim=H).init_params(
+        torch.Generator().manual_seed(H), device=cuda)
+    rows = torch.randn(2_500_000, F, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(H))
+    s = score_rows_cuda(p, rows)
+    for a, b in ((0, 1), (1_250_000, 1_250_037), (1_250_063, 1_250_064),
+                 (2_499_963, 2_500_000), (2_499_999, 2_500_000)):
+        assert torch.equal(score_rows_cuda(p, rows[a:b]), s[a:b]), (a, b)
+    assert bool(torch.isfinite(s).all())
+
+
+@pytest.mark.parametrize("H", [64, 256, 129, 320])
+def test_fused_mlp_route_boundary(cuda, H):
+    """H = 64 and 256 take the tensor cores, H = 129 and 320 the CUDA
+    cores (F = 8): each entry against its plain version, and a row
+    scores the same in any batch."""
+    p = TrafficPolicyModel(hidden_dim=H).init_params(
+        torch.Generator().manual_seed(H), device=cuda)
+    x, m = _k3_inputs(cuda, 300, 7, H)
+    assert parity.weights_close(forward_cuda(p, x, m).cpu().numpy(),
+                                forward_reference(p, x, m).cpu().numpy())
+    rows = x.reshape(-1, F)
+    s = score_rows_cuda(p, rows)
+    assert parity.scores_close(s.cpu().numpy(),
+                               dense_scores(p, rows).cpu().numpy())
+    for a, b in K3_SLICES:
+        assert torch.equal(score_rows_cuda(p, rows[a:b]), s[a:b]), (a, b)
+
+
+@pytest.mark.parametrize("H", [128, 256])
+def test_fused_mlp_tensor_cores_take_views_at_any_offset(cuda, H):
+    """The route does not depend on alignment: x and every param a bf16
+    off a 16-byte boundary give the aligned copies' scores and weights
+    bit for bit."""
+    p = TrafficPolicyModel(hidden_dim=H).init_params(
+        torch.Generator().manual_seed(H + 1), device=cuda)
+    x, m = _k3_inputs(cuda, 200, 16, H + 1)
+    xb = x.to(torch.bfloat16)
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    q = {k: off(v) for k, v in p.items()}
+    rows = xb.reshape(-1, F)
+    assert torch.equal(score_rows_cuda(q, off(rows)),
+                       score_rows_cuda(p, rows))
+    assert torch.equal(forward_cuda(q, off(xb), m), forward_cuda(p, xb, m))
+
+
 def test_splice_kernel_matches_plain_version_in_place(cuda):
     rng = np.random.default_rng(3)
     for W in (4, 1):
@@ -379,7 +529,8 @@ def test_resident_waves_on_card_bitmatch_full_repack(cuda, params):
 
 def test_resident_waves_at_hidden_256_bitmatch_full_repack(cuda):
     """The resident planner's check rests on K3's row contract; with a
-    256-unit model (two passes, w2 streamed) a wave still bit-matches
+    256-unit model (on the tensor cores: w1 and w2 resident in shared
+    memory, layer 2 in two 128-column chunks) a wave still bit-matches
     the full repack."""
     model = TrafficPolicyModel(hidden_dim=256)
     params = model.init_params(torch.Generator().manual_seed(2),

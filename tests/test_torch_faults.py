@@ -59,3 +59,10 @@ def test_every_k2_fault_is_planted_in_the_quantizer():
           if src.endswith("csrc/plan_weights.cu")}
     assert k2 == {"quad_drops_lane_pair_level", "quad_rounds_down",
                   "quad_writes_last_quad_as_zero"}
+
+
+def test_every_k3_fault_is_planted_in_the_mlp():
+    k3 = {name for name, (src, _, _) in FAULTS.items()
+          if src.endswith("csrc/mlp.cu")}
+    assert k3 == {"layer2_drops_last_k16_step", "layer3_skips_last_chunk",
+                  "plan_group_from_first_tile_only"}
