@@ -18,9 +18,13 @@
 //   bf16(ds) and db2 = sum ds, f32; dh = bf16(h > 0 ? ds w2 : 0) (the
 //   product in f32); db1 = sum dh and dw1 = x^T . dh, f32; dx =
 //   bf16(dh . w1^T).
-// Products run on mma.sync m16n8k16 with bf16 operands and f32
-// accumulators (flash_common.cuh); the h . w2 dot and the sums of dw2 and
-// db1 run in f32 FMA on the accumulator layout, in a fixed order.
+// K10 and K11's CUDA-core route run their products on mma.sync m16n8k16
+// with bf16 operands and f32 accumulators (flash_common.cuh); the h . w2
+// dot and the sums of dw2 and db1 run in f32 FMA on the accumulator
+// layout, in a fixed order.  K11's tensor-core route (D <= 128, H <= 256,
+// below score_head_bwd_tc_kernel) runs the same chains of k16 steps on
+// wgmma, whose k16 step sums as mma.sync's does, so its dx is the CUDA-core
+// route's bit for bit.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): K10 moves 2 N D + 4 N
 // bytes (x in, scores out) and does 2 N D H (+ 2 N H) flops; K11 moves
@@ -39,7 +43,8 @@
 // memory with the flash kernels' tile loader.
 // - K10: one CTA a row tile; for each hidden chunk, the [64, kHN] h tile
 //   is built in registers and folded into the running h . w2 of its rows.
-// - K11: a persistent grid (as many CTAs as the card holds at once, at
+// - K11's CUDA-core route (every width off the tensor-core route): a
+//   persistent grid (as many CTAs as the card holds at once, at
 //   most 4 an SM), CTA c owning a contiguous run of row tiles, w1 whole
 //   in shared memory when D is 65-128 and it fits in 96 KB (else one
 //   chunk at a time).
@@ -52,8 +57,7 @@
 //   per-CTA partials in CTA order.  No atomics, so two runs are bit for
 //   bit identical; the partials take (D H + 2 H + 1) floats per CTA
 //   (35 MB at D = 128, H = 256 on 132 SMs, against 537 MB for one per row
-//   tile at 2 CTAs an SM).  (No cp.async, TMA or wgmma: that is a faster
-//   kernel's work.)
+//   tile at 2 CTAs an SM).
 #include <algorithm>
 
 #include "flash_common.cuh"
@@ -471,6 +475,463 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials,
   out[e] = s;
 }
 
+// ---------------------------------------------------------------------------
+// K11 on the tensor cores: the route for D <= 128 (the wrapper's D, a
+// multiple of 8) and H <= 256, which holds both of the main path's shapes.
+// Every other width keeps score_head_bwd_kernel above.  The route is
+// chosen here by D and H alone (bwd_tc_route; the wrapper asks the
+// library, agac_score_head_bwd_tc_route, and keeps no copy).
+//
+// - Persistent CTAs of one warpgroup, as many as the card holds at once
+//   (two an SM at both main-path shapes), CTA c taking row tiles c, c +
+//   grid, ...  Each copies w1 once into shared memory, zero past D (to
+//   kDPad) and past H (to whole 64-unit chunks), in boxes of 64 hidden
+//   units x kDPad rows of d, 128 bytes a row, each row's 16-byte chunks
+//   placed as a 128-byte-swizzled TMA box would place them.  That one
+//   copy is the MN-major B of h = x . w1 (K = d, N = the chunk's 64
+//   units) and the K-major B of dx = dh . w1^T (K = the chunk's units,
+//   N = d).  b1 (bf16 pairs) and w2 (f32 pairs) go there too.
+// - x tiles come by TMA (a map over [N, D], zero past N and D) into a
+//   ring of kTcStages stages, one thread issuing; each lane reads ds of
+//   its two rows a tile ahead.
+// - Per row tile the hidden layer is computed once, chunk by chunk: h =
+//   wgmma m64n64k16 over D in ascending k16 steps from a zeroed
+//   accumulator (the parent's hidden_chunk chain); the epilogue gives h,
+//   the gate and dh = bf16(h > 0 ? ds w2 : 0); dh is packed into A
+//   fragments (pack_acc's layout) and dx += dh . w1^T runs as wgmma RS
+//   over the chunk's four k16 steps, dx's accumulator carried across the
+//   chunks in ascending order (the parent's pass-2 chain).  The probe
+//   tests/test_torch_cuda.py::test_score_head_wgmma_forms_sum_as_mma_sync
+//   holds both forms to mma.sync m16n8k16 bit for bit, so dx and the gates
+//   keep the parent's values.
+// - The weight gradients come from the same dh: dh goes to shared memory
+//   in the swizzled MN-major layout, and dw1^T += dh^T . x is wgmma with
+//   both operands MN-major over the tile's 64 rows (any order: the
+//   weight gradients have no bit contract, only
+//   score_head_weight_grad_limits); dw2 and db1 add up in each lane's
+//   registers in a fixed order, db2 likewise.
+// - Registers: dw1^T of a hidden chunk takes kDPad / 2 f32 a thread, its
+//   dw2 and db1 shares 32.  A sweep over the CTA's tiles holds the weight
+//   gradients of kSweepChunks chunks (2 for kDPad <= 32, else 1); the
+//   first sweep also gives dx (and so computes every chunk's h), each
+//   later one recomputes the h of its own chunks only.  At D = 32, H =
+//   128 that is one sweep (6 N D H flops); at D = 128, H = 256 four (7.5
+//   N D H flops, x read four times).
+// - No float atomics: each CTA writes one f32 partial (dw1 [D, H], db1,
+//   dw2, db2), which sum_partials_kernel adds in CTA order, so two runs
+//   agree bit for bit.
+constexpr int kTcStages = 2;       // x tiles in flight a CTA
+constexpr int kTcMaxSmem = 227 * 1024;   // the H100's per-CTA limit
+constexpr int kTcMaxH = 256;       // the route's widest hidden layer
+constexpr int kDhBytes = kBlock * 128;   // a dh chunk: 64 rows x 64 units
+
+__host__ __device__ inline bool bwd_tc_route(int D, int H) {
+  return D <= kMaxDPad && H <= kTcMaxH;
+}
+
+template <int kDPad>
+struct TcBwd {
+  using L = SwizzledTile<kDPad>;   // an x tile as TMA writes it
+  static constexpr int kSweepChunks = kDPad <= 32 ? 2 : 1;
+  static constexpr int kW1Box = kDPad * 128;    // 64 units x kDPad rows
+  static constexpr int kDTiles = kDPad / 8;     // n-tiles of dx, dw1^T
+  static constexpr int kDxN = kDPad < 64 ? kDPad : 64;   // dx's groups
+};
+
+__host__ __device__ inline int hidden_chunks(int H) {
+  return (H + kHN - 1) / kHN;
+}
+
+// x stages, dh chunks, w1's boxes, b1 and w2, the cross-warp sums, the
+// barriers, and 1 KB to align the swizzled tiles.
+template <int kDPad>
+__host__ __device__ inline int bwd_tc_smem_bytes(int H) {
+  using S = TcBwd<kDPad>;
+  const int chunks = hidden_chunks(H);
+  return 1024 + kTcStages * S::L::kBytes + S::kSweepChunks * kDhBytes +
+         chunks * S::kW1Box + chunks * kHN * (2 + 4) +
+         4 * (2 * kWarps * kHN + kWarps) + 8 * kTcStages;
+}
+
+// relu(bf16(bf16(a) + b)) of a column pair, packed (bf16x2 instructions:
+// the add rounds the exact sum of two bf16 numbers once, where hidden()
+// rounds it to f32 first, which is innocuous at 24 >= 2 * 8 + 2 bits, so
+// both give the same bf16: mlp.cu's layer_out)
+__device__ __forceinline__ uint32_t hidden_pair(float a0, float a1,
+                                                __nv_bfloat162 bias) {
+  const __nv_bfloat162 v = __hmax2(
+      __hadd2(__floats2bfloat162_rn(a0, a1), bias), __float2bfloat162_rn(0.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float lo_bf(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_bf(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// w1 [D, H] into chunks of 64 units x kDPad rows (128 bytes a row, the
+// 16-byte chunk j of row d at j ^ (d % 8)), zero past D and H; b1 as bf16
+// pairs and w2 as f32 pairs, zero past H.
+template <int kDPad>
+__device__ __forceinline__ void copy_weights(
+    uint8_t* w1s, __nv_bfloat162* b1s, float2* w2s,
+    const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
+    const __nv_bfloat16* __restrict__ w2, int D, int H, int chunks) {
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(w1);
+  const bool vec = H % 8 == 0 && (reinterpret_cast<uintptr_t>(w1) & 15) == 0;
+  const int per_row = chunks * 8;   // 16-byte chunks a row of d
+  for (int i = threadIdx.x; i < kDPad * per_row; i += kThreads) {
+    const int d = i / per_row;
+    const int j = i - d * per_row;   // columns [8 j, 8 j + 8)
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (d < D && 8 * j < H) {
+      const long long at = static_cast<long long>(d) * H + 8 * j;
+      if (vec) {
+        v = *reinterpret_cast<const uint4*>(src + at);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t lo = 8 * j + 2 * e < H ? src[at + 2 * e] : 0u;
+          const uint32_t hi = 8 * j + 2 * e + 1 < H ? src[at + 2 * e + 1] : 0u;
+          w[e] = lo | (hi << 16);
+        }
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(w1s + (j / 8) * TcBwd<kDPad>::kW1Box +
+                              d * 128 + (((j % 8) ^ (d % 8)) << 4)) = v;
+  }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int p = threadIdx.x; p < chunks * kHN / 2; p += kThreads) {
+    const int j = 2 * p;
+    b1s[p] = __halves2bfloat162(j < H ? b1[j] : zero,
+                                j + 1 < H ? b1[j + 1] : zero);
+    w2s[p] = make_float2(j < H ? bf(w2[j]) : 0.f,
+                         j + 1 < H ? bf(w2[j + 1]) : 0.f);
+  }
+}
+
+template <int kDPad>
+__global__ void __launch_bounds__(kThreads, 2) score_head_bwd_tc_kernel(
+    const __grid_constant__ CUtensorMap x_map, const float* __restrict__ ds,
+    const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
+    const __nv_bfloat16* __restrict__ w2, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ partials, int N, int D, int H) {
+  using S = TcBwd<kDPad>;
+  using L = typename S::L;
+  constexpr int kSC = S::kSweepChunks;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* xs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* dhs = xs + kTcStages * L::kBytes;
+  uint8_t* w1s = dhs + kSC * kDhBytes;
+  const int chunks = hidden_chunks(H);
+  __nv_bfloat162* b1s =
+      reinterpret_cast<__nv_bfloat162*>(w1s + chunks * S::kW1Box);
+  float2* w2s = reinterpret_cast<float2*>(b1s + chunks * kHN / 2);
+  float* red = reinterpret_cast<float*>(w2s + chunks * kHN / 2);
+  float* red2 = red + 2 * kWarps * kHN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(red2 + kWarps);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int lr = warp * 16 + g;   // this lane's rows lr and lr + 8
+  const int n_tiles = (N + kBlock - 1) / kBlock;
+  const int my_tiles =
+      (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int sweeps = (chunks + kSC - 1) / kSC;
+  const int items = sweeps * my_tiles;
+  auto row_of = [&](int item) {
+    return (blockIdx.x + (item % my_tiles) * gridDim.x) * kBlock;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTcStages; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+  }
+  copy_weights<kDPad>(w1s, b1s, w2s, w1, b1, w2, D, H, chunks);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kTcStages && i < items; ++i)
+      tma_tile<kDPad>(xs + i * L::kBytes, &x_map, 0, row_of(i), full + i);
+
+  const uint64_t w1d = gmma_desc<128>(w1s);
+  float* part = partials + blockIdx.x * partial_size(D, H);
+  float db2 = 0.f;
+  // ds of this lane's two rows, read a tile ahead
+  auto load_ds = [&](int item, float (&v)[2]) {
+    const int row = row_of(item) + lr;
+    v[0] = row < N ? ds[row] : 0.f;
+    v[1] = row + 8 < N ? ds[row + 8] : 0.f;
+  };
+  float ds_next[2];
+  load_ds(0, ds_next);
+  int item = 0;
+  for (int sweep = 0; sweep < sweeps; ++sweep) {
+    const int c_lo = sweep * kSC;                 // weight gradients of
+    const int c_hi = min(chunks, c_lo + kSC);     // chunks [c_lo, c_hi)
+    const int c_end = sweep == 0 ? chunks : c_hi;
+    float dw1[kSC][S::kDTiles][4];
+    float dw2p[kSC][8][2], db1p[kSC][8][2];
+#pragma unroll
+    for (int q = 0; q < kSC; ++q) {
+#pragma unroll
+      for (int t = 0; t < S::kDTiles; ++t)
+        dw1[q][t][0] = dw1[q][t][1] = dw1[q][t][2] = dw1[q][t][3] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        dw2p[q][nt][0] = dw2p[q][nt][1] = db1p[q][nt][0] =
+            db1p[q][nt][1] = 0.f;
+    }
+    for (int t = 0; t < my_tiles; ++t, ++item) {
+      const int stage = item % kTcStages;
+      const int row0 = row_of(item);
+      const float ds_r[2] = {ds_next[0], ds_next[1]};
+      if (item + 1 < items) load_ds(item + 1, ds_next);
+      if (sweep == 0 && tq == 0) db2 += ds_r[0] + ds_r[1];
+      float dxa[S::kDTiles][4];
+#pragma unroll
+      for (int nt = 0; nt < S::kDTiles; ++nt)
+        dxa[nt][0] = dxa[nt][1] = dxa[nt][2] = dxa[nt][3] = 0.f;
+      mbar_wait(full + stage, (item / kTcStages) & 1);
+      const uint64_t xd = gmma_desc<L::kSwz>(xs + stage * L::kBytes);
+
+      for (int c = sweep == 0 ? 0 : c_lo; c < c_end; ++c) {
+        // h chunk = x . w1[:, 64 c : 64 c + 64], k16 steps over D in order
+        float h[8][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
+        fence_acc(h);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDPad / 16; ++kk)
+          wgmma_ss<64, false, true, 0>(
+              h, xd + (L::k_step(kk) >> 4),
+              w1d + ((c * S::kW1Box + kk * 16 * 128) >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(h);
+
+        // the epilogue: h, its gate, dh; this sweep's dw2 and db1 shares
+        uint32_t dhp[8][2];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int pair = c * (kHN / 2) + 4 * nt + tq;
+          const __nv_bfloat162 bias = b1s[pair];
+          const float2 wv = w2s[pair];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float d = ds_r[r];
+            const uint32_t hv = hidden_pair(h[nt][2 * r], h[nt][2 * r + 1],
+                                            bias);
+            const float h0 = lo_bf(hv), h1 = hi_bf(hv);
+            const float dh0 = h0 > 0.f ? bf16_round(d * wv.x) : 0.f;
+            const float dh1 = h1 > 0.f ? bf16_round(d * wv.y) : 0.f;
+            dhp[nt][r] = pack_bf16(dh0, dh1);
+            const float db = bf16_round(d);
+#pragma unroll
+            for (int q = 0; q < kSC; ++q) {
+              if (c == c_lo + q) {
+                dw2p[q][nt][0] = fmaf(h0, db, dw2p[q][nt][0]);
+                dw2p[q][nt][1] = fmaf(h1, db, dw2p[q][nt][1]);
+                db1p[q][nt][0] += dh0;
+                db1p[q][nt][1] += dh1;
+              }
+            }
+          }
+        }
+
+        // dh to shared memory for dw1 (the slot's last reader, the
+        // previous tile's dw1 product, has completed)
+        if (c >= c_lo && c < c_hi) {
+          uint8_t* slot = dhs + (c - c_lo) * kDhBytes;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = lr + 8 * r;
+              *reinterpret_cast<uint32_t*>(
+                  slot + row * 128 + ((nt ^ (row % 8)) << 4) + 4 * tq) =
+                  dhp[nt][r];
+            }
+        }
+
+        if (sweep == 0) {
+          // dx += dh . w1^T over the chunk's four k16 steps, in order
+          fence_acc(dxa);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t a[4] = {dhp[2 * kk][0], dhp[2 * kk][1],
+                                   dhp[2 * kk + 1][0], dhp[2 * kk + 1][1]};
+            wgmma_rs_groups<S::kDxN, kDPad / S::kDxN, 64 * 128, false>(
+                dxa, a, w1d + ((c * S::kW1Box + kk * 32) >> 4));
+          }
+          // completed by the next chunk's wait, or the one below
+          wgmma_commit();
+        }
+      }
+
+      if (sweep == 0) {
+        wgmma_wait<0>();
+        fence_acc(dxa);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + lr + 8 * r;
+          if (row >= N) continue;
+          __nv_bfloat16* out = dx + static_cast<long long>(row) * D;
+#pragma unroll
+          for (int nt = 0; nt < S::kDTiles; ++nt) {
+            const int d = nt * 8 + 2 * tq;
+            if (d < D)
+              *reinterpret_cast<uint32_t*>(out + d) =
+                  pack_bf16(dxa[nt][2 * r], dxa[nt][2 * r + 1]);
+          }
+        }
+      }
+
+      // dw1^T += dh^T . x over the tile's 64 rows
+      fence_proxy_async();
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kSC; ++q) fence_acc(dw1[q]);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < kSC; ++q) {
+        if (c_lo + q < c_hi) {
+          const uint64_t dd = gmma_desc<128>(dhs + q * kDhBytes);
+#pragma unroll
+          for (int kk = 0; kk < kBlock / 16; ++kk)
+            wgmma_ss_groups<L::kBoxCols, L::kBoxes, true, true,
+                            L::kBoxBytes>(
+                dw1[q], dd + ((kk * 16 * 128) >> 4),
+                xd + ((kk * 16 * L::kSwz) >> 4));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < kSC; ++q) fence_acc(dw1[q]);
+      __syncthreads();   // the stage and the dh chunks are read
+      if (threadIdx.x == 0 && item + kTcStages < items)
+        tma_tile<kDPad>(xs + stage * L::kBytes, &x_map, 0,
+                        row_of(item + kTcStages), full + stage);
+    }
+
+    // this sweep's chunks into the CTA's partial: dw1 from the
+    // accumulators; dw2 and db1 over the eight lanes of a column pair in
+    // a fixed tree, then the warps in order
+    float* part_db1 = part + static_cast<long long>(D) * H;
+    float* part_dw2 = part_db1 + H;
+#pragma unroll
+    for (int q = 0; q < kSC; ++q) {
+      const int c = c_lo + q;
+      if (c >= c_hi) continue;
+#pragma unroll
+      for (int nt = 0; nt < S::kDTiles; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = c * kHN + lr + 8 * (i >> 1);
+          const int d = nt * 8 + 2 * tq + (i & 1);
+          if (j < H && d < D)
+            part[static_cast<long long>(d) * H + j] = dw1[q][nt][i];
+        }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = dw2p[q][nt][e];
+          float b = db1p[q][nt][e];
+          for (int off = 4; off < 32; off <<= 1) {
+            a += __shfl_xor_sync(0xffffffffu, a, off);
+            b += __shfl_xor_sync(0xffffffffu, b, off);
+          }
+          if (g == 0) {
+            red[warp * kHN + nt * 8 + 2 * tq + e] = a;
+            red[(kWarps + warp) * kHN + nt * 8 + 2 * tq + e] = b;
+          }
+        }
+      __syncthreads();
+      for (int jl = threadIdx.x; jl < kHN; jl += kThreads) {
+        if (c * kHN + jl >= H) continue;
+        float a = 0.f, b = 0.f;
+        for (int w = 0; w < kWarps; ++w) {
+          a += red[w * kHN + jl];
+          b += red[(kWarps + w) * kHN + jl];
+        }
+        part_dw2[c * kHN + jl] = a;
+        part_db1[c * kHN + jl] = b;
+      }
+      __syncthreads();
+    }
+  }
+  // db2: this CTA's rows, each counted by its quad's first lane
+  for (int off = 16; off > 0; off >>= 1)
+    db2 += __shfl_xor_sync(0xffffffffu, db2, off);
+  if (lane == 0) red2[warp] = db2;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t += red2[w];
+    part[partial_size(D, H) - 1] = t;
+  }
+}
+
+// The tensor-core route's grid: as many CTAs as fit on the card at once,
+// fewer when there are fewer row tiles.  A negative value is a CUDA error.
+template <int kDPad>
+int bwd_tc_grid(int N, int H) {
+  auto kernel = score_head_bwd_tc_kernel<kDPad>;
+  const int bytes = bwd_tc_smem_bytes<kDPad>(H);
+  static unsigned allowed = 0;
+  int err = allow_smem(kernel, kTcMaxSmem, &allowed, true);
+  if (err) return -err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  const int n_tiles = std::max(1, (N + kBlock - 1) / kBlock);
+  return std::min(n_tiles, sms * per_sm);
+}
+
+template <int kDPad>
+int launch_bwd_tc(const void* x, const void* ds, const void* w1,
+                  const void* b1, const void* w2, void* dx, void* partials,
+                  void* sums, int N, int D, int H, int ctas,
+                  cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const int grid = bwd_tc_grid<kDPad>(N, H);
+  if (grid < 0) return -grid;
+  if (grid != ctas) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map;
+  int err = encode_head_tiles<kDPad>(&x_map, x, N, 1, D);
+  if (err) return err;
+  score_head_bwd_tc_kernel<kDPad>
+      <<<ctas, kThreads, bwd_tc_smem_bytes<kDPad>(H), stream>>>(
+          x_map, static_cast<const float*>(ds), static_cast<const bf16*>(w1),
+          static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+          static_cast<bf16*>(dx), static_cast<float*>(partials), N, D, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n = partial_size(D, H);
+  sum_partials_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                        stream>>>(static_cast<const float*>(partials),
+                                  static_cast<float*>(sums), n, ctas);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K11's grid: as many CTAs as fit on the card at once (occupancy x
 // multiprocessors, at most kMaxCtasPerSm each), fewer when there are
 // fewer row tiles, each CTA a contiguous run of tiles_per_cta.  A
@@ -555,6 +1016,12 @@ extern "C" int agac_score_head_fwd(const void* x, const void* w1,
 // for N rows of width D (a multiple of 8) and H hidden units; negative:
 // a CUDA error.
 extern "C" int agac_score_head_bwd_ctas(int N, int D, int H) {
+  if (bwd_tc_route(D, H)) {
+    if (D <= 16) return bwd_tc_grid<16>(N, H);
+    if (D <= 32) return bwd_tc_grid<32>(N, H);
+    if (D <= 64) return bwd_tc_grid<64>(N, H);
+    return bwd_tc_grid<128>(N, H);
+  }
   int per = 0;
   if (D <= 16) return bwd_grid<16, false>(N, H, &per);
   if (D <= 32) return bwd_grid<32, false>(N, H, &per);
@@ -572,6 +1039,19 @@ extern "C" int agac_score_head_bwd(const void* x, const void* ds,
                                    void* sums, int N, int D, int H, int ctas,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bwd_tc_route(D, H)) {
+    if (D <= 16)
+      return launch_bwd_tc<16>(x, ds, w1, b1, w2, dx, partials, sums, N, D,
+                               H, ctas, st);
+    if (D <= 32)
+      return launch_bwd_tc<32>(x, ds, w1, b1, w2, dx, partials, sums, N, D,
+                               H, ctas, st);
+    if (D <= 64)
+      return launch_bwd_tc<64>(x, ds, w1, b1, w2, dx, partials, sums, N, D,
+                               H, ctas, st);
+    return launch_bwd_tc<128>(x, ds, w1, b1, w2, dx, partials, sums, N, D, H,
+                              ctas, st);
+  }
   if (D <= 16)
     return launch_bwd<16>(x, ds, w1, b1, w2, dx, partials, sums, N, D, H,
                           ctas, st);
@@ -586,4 +1066,10 @@ extern "C" int agac_score_head_bwd(const void* x, const void* ds,
                            ctas, st);
   return launch_bwd<kMaxDPad, true>(x, ds, w1, b1, w2, dx, partials, sums, N,
                                     D, H, ctas, st);
+}
+
+// 1 where agac_score_head_bwd takes its tensor-core route for rows of
+// width D (a multiple of 8) and H hidden units, else 0.
+extern "C" int agac_score_head_bwd_tc_route(int D, int H) {
+  return bwd_tc_route(D, H) ? 1 : 0;
 }

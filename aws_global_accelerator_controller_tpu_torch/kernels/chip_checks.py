@@ -32,11 +32,19 @@ shapes, over E = 1..40 and 300 at ragged G (with infinities, a NaN,
 wide scores and zeros of both signs in a few rows) and on rows of k
 equal valid scores; and of K3's weights and row scores on its two
 routes: the tensor-core route at H = 128 and 256 (the timed inputs),
-the CUDA-core route at H = 129 and 512 (2048 x 16 groups).  First it
-runs the card tests ``test_wgmma_sums_as_mma_sync``
-and ``test_wgmma_sums_split_terms_as_mma_sync`` in TREE_B.  ``ab``
+the CUDA-core route at H = 129 and 512 (2048 x 16 groups); of K10's
+scores and K11's dx at the two timed shapes and of K11's dx over the
+card tests' sweep (D in 8, 20, 96, 128, 160, H in 16, 128, 200, 256,
+512, 703 rows: both of K11's routes), beside each weight gradient's
+``weight_grad_error`` against its plain version at the timed shapes
+(their digests may differ: the parent's order of sums follows its
+grid).  First it runs the card tests ``test_wgmma_sums_as_mma_sync``,
+``test_wgmma_sums_split_terms_as_mma_sync`` and
+``test_score_head_wgmma_forms_sum_as_mma_sync`` in TREE_B.  ``ab``
 fails unless the four runs give the same backward digests (K7, K8 and
-K9), the same K2 and K3 digests (``k2_digests_equal``,
+K9), the same K10 and K11 digests and K11's probe passed
+(``head_digests_equal``, ``head_probe_passed``), the same K2 and K3
+digests (``k2_digests_equal``,
 ``mlp_digests_equal``: K3's tensor-core route re-sums near-tie sums in
 the CUDA-core route's f32 order, so both routes keep the parent's
 values; no probe needed), the same
@@ -57,10 +65,13 @@ of it fail on every one, the latter at every shape where the fault
 changes the result:
 
 - K11 (the card test over many row tiles; ``chip_smoke.py`` at both
-  shapes): ``half_partials``, the second kernel sums every other CTA's
-  partial; ``first_tile_only``, each CTA adds only its first row tile
-  into dw1, db1 and dw2; ``zero_weight_grads``, the weight gradients
-  come out zero;
+  shapes, D = 32, H = 128 and D = 128, H = 256, both on the tensor-core
+  route): ``dx_skips_last_k16_step``, dx's chain skips the last k16 step
+  of the last hidden chunk; ``dw1_first_tile_only``, dw1 takes each
+  sweep's first row tile of a CTA only; ``dh_without_relu_gate``, dh is
+  formed without the relu gate; and in the partials' sum, which both
+  routes launch, ``half_partials``, it sums every other CTA's partial,
+  and ``zero_weight_grads``, the weight gradients come out zero;
 - K9 (the card tests of the fused backward, T up to 200, and T = 1024
   and 2048 where the dq chains are longest; ``chip_smoke.py`` at
   T = 2048 and T = 1024, which have several K blocks, and at T = 64
@@ -132,13 +143,18 @@ entry that differ at E = 16, 7 and 300, and times both entries at
 ``chip_smoke.py``'s shapes (A B B A over the scales).  Exits 1 unless
 the source as it is differs nowhere.
 
-``sass [SOURCE ...]``: compiles kernel sources (default K6b-ring's and
-K3's) with
+``sass [SOURCE ...]``: compiles kernel sources (default K6b-ring's,
+K3's and K10's and K11's) with
 ``-Xptxas -v`` and dumps their SASS: registers, stack and spills a
 kernel, every ptxas warning, HGMMA and HMMA counts, 128-bit global loads
 and stores (``LDG.E.128``, ``STG.E.128``), and for K6b-ring's
 source the CTAs an SM its launches take at each width class; exits 1 on
 a warning or on a spill in a wgmma kernel.
+
+``head TREE ...``: ``torch.profiler`` over 10 calls of K11's wrapper at
+its two timed shapes in each checkout: device ms a call of each kernel
+it launches (the route's kernel, the partials' sum, the copies around
+them).
 
 ``profile``: ``torch.profiler`` over ``--steps`` (3) sequence-supervised
 train steps of the temporal model, by default at the train command's
@@ -204,6 +220,7 @@ Run from the root of a checkout, on a machine with one card::
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ab build/parent .
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks faults [NAME ...]
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks sass [SOURCE ...]
+    python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks head build/parent .
     python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks profile [--window T --chunks 0 32 ...]
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ring --device cuda:0
     python3 -m torch.distributed.run --standalone --nproc-per-node 2 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks gloo --device cuda:0
@@ -311,6 +328,12 @@ for E in (*range(1, 41), 300):
     m = torch.arange(E, device="cuda")[None, :] < k
     s = (torch.randn(G, 1, device="cuda", generator=g) * 5).expand(G, E)
     digests[f"k2 equal E={E}"] = digest(plan_weights_cuda(s, m))
+# K10 and K11: times, digests of K10's scores and K11's dx at the two
+# timed shapes and of K11's dx over the card tests' sweep (703 rows, both
+# of K11's routes), and each weight gradient's error against its plain
+# version over its limit (the weight gradients' digests may differ: the
+# parent's own order of sums depends on its grid)
+weight_errors = {}
 for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
     x, w1, b1, w2, b2, ds = cs._head_inputs(T, S, D, H, 13)
     shape = f"T={T} S={S} D={D} H={H}"
@@ -318,6 +341,21 @@ for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
         lambda: ch.score_head_forward(x, w1, b1, w2, b2))
     out["score_head_bwd " + shape] = cs.time_device(
         lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))
+    grads = ch.score_head_bwd(x, w1, b1, w2, b2, ds)
+    digests["head fwd " + shape] = digest(
+        ch.score_head_forward(x, w1, b1, w2, b2))
+    digests["head dx " + shape] = digest(grads[0])
+    want = ch.score_head_bwd_plain(x, w1, b1, w2, b2, ds)
+    limits = ch.score_head_weight_grad_limits(x, w1, b1, w2, b2, ds)
+    weight_errors[shape] = {
+        name: ch.weight_grad_error(g, w, lim) for name, g, w, lim in zip(
+            ("dw1", "db1", "dw2", "db2"), grads[1:], want[1:], limits)}
+    del x, grads, want, limits
+for D in (8, 20, 96, 128, 160):
+    for H in (16, 128, 200, 256, 512):
+        x, w1, b1, w2, b2, ds = cs._head_inputs(19, 37, D, H, D + H)
+        digests[f"head dx sweep D={D} H={H}"] = digest(
+            ch.score_head_bwd(x, w1, b1, w2, b2, ds)[0])
 for T, S, D in ((64, 8192, 32), (2048, 128, 128), (1024, 64, 160)):
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(T, S, D, device="cuda", generator=g)
@@ -422,7 +460,8 @@ for T, S, D in ((64, 32, 32), (1024, 32, 32), (1536, 32, 32),
     digests[f"bwd dqkv T={T} S={S} D={D}"] = digest(
         *ca.flash_bwd_dqkv(q, k, v, do, m, l, dvec))
 torch.save(saved, sys.argv[1])
-print(json.dumps({"ms": out, "digests": digests}))
+print(json.dumps({"ms": out, "digests": digests,
+                  "weight_grad_error": weight_errors}))
 """
 
 # run inside a checkout: a kernel's check in chip_smoke.py at each shape
@@ -450,19 +489,30 @@ _K2_SRC = f"{PKG}/csrc/plan_weights.cu"
 _MLP_SRC = f"{PKG}/csrc/mlp.cu"
 #: name -> (source, a text of it once, the faulty replacement)
 FAULTS = {
+    "dx_skips_last_k16_step": (
+        _HEAD_SRC,
+        "          for (int kk = 0; kk < 4; ++kk) {\n"
+        "            const uint32_t a[4]",
+        "          for (int kk = 0; kk < (c == chunks - 1 ? 3 : 4); ++kk) {\n"
+        "            const uint32_t a[4]"),
+    "dw1_first_tile_only": (
+        _HEAD_SRC,
+        "        if (c_lo + q < c_hi) {\n"
+        "          const uint64_t dd",
+        "        if (c_lo + q < c_hi && t == 0) {\n"
+        "          const uint64_t dd"),
+    "dh_without_relu_gate": (
+        _HEAD_SRC,
+        "            const float dh0 = h0 > 0.f ? bf16_round(d * wv.x) : "
+        "0.f;\n"
+        "            const float dh1 = h1 > 0.f ? bf16_round(d * wv.y) : "
+        "0.f;",
+        "            const float dh0 = bf16_round(d * wv.x);\n"
+        "            const float dh1 = bf16_round(d * wv.y);"),
     "half_partials": (
         _HEAD_SRC,
         "for (int c = 0; c < ctas; ++c) s += partials[c * n + e];",
         "for (int c = 0; c < ctas; c += 2) s += partials[c * n + e];"),
-    "first_tile_only": (
-        _HEAD_SRC,
-        "      for (int tile = tile0; tile < tile1; ++tile) {\n"
-        "        const int row0 = tile * kBlock;\n"
-        "        float acc",
-        "      for (int tile = tile0; tile < min(tile1, tile0 + 1); ++tile) "
-        "{\n"
-        "        const int row0 = tile * kBlock;\n"
-        "        float acc"),
     "zero_weight_grads": (_HEAD_SRC, "  out[e] = s;", "  out[e] = 0.f;"),
     "dq_skips_k_block_0": (
         _DQKV_SRC,
@@ -619,6 +669,8 @@ def _run(cmd, cwd, timeout=900):
 _PROBE = "test_wgmma_sums_as_mma_sync"
 #: the same for K6b-ring's three-term score product
 _RING_PROBE = "test_wgmma_sums_split_terms_as_mma_sync"
+#: the forms of K11's tensor-core route, whose dx keeps its bits
+_HEAD_PROBE = "test_score_head_wgmma_forms_sum_as_mma_sync"
 #: the three shapes of K6a, K6b, K7 and K8 that ab times
 _AB_SHAPES = ("T=64 S=8192 D=32", "T=2048 S=128 D=128", "T=1024 S=64 D=160")
 
@@ -653,7 +705,7 @@ def ab(tree_a: str, tree_b: str) -> int:
                  "--format=csv,noheader"], ROOT, timeout=60)
     print(json.dumps({"card": card.stdout.strip()}), flush=True)
     passed = {}
-    for test in (_PROBE, _RING_PROBE):
+    for test in (_PROBE, _RING_PROBE, _HEAD_PROBE):
         probe = _run([sys.executable, "-m", "pytest", "--noconftest", "-q",
                       "-p", "no:cacheprovider", "tests/test_torch_cuda.py",
                       "-k", test], Path(tree_b).resolve())
@@ -676,12 +728,15 @@ def ab(tree_a: str, tree_b: str) -> int:
             res = json.loads(r.stdout.strip().splitlines()[-1])
             runs.append({"tree": name, "path": tree, "saved": saved, **res})
             print(json.dumps({"tree": name, "path": tree, "ms": res["ms"],
+                              "weight_grad_error": res.get(
+                                  "weight_grad_error"),
                               "digests": {k: v for k, v in
                                           res["digests"].items()
                                           if "S=3 " not in k
                                           and "H=3 " not in k
                                           and not k.startswith(
-                                              ("k2 sweep", "k2 equal"))}}),
+                                              ("k2 sweep", "k2 equal",
+                                               "head dx sweep"))}}),
                   flush=True)
         mean = {name: {k: sum(r["ms"][k] for r in runs
                               if r["tree"] == name) / 2
@@ -699,6 +754,7 @@ def ab(tree_a: str, tree_b: str) -> int:
         ring_differ = [k for k in differ if k.startswith("ring ")]
         k2_differ = [k for k in differ if k.startswith("k2 ")]
         mlp_differ = [k for k in differ if k.startswith("mlp ")]
+        head_differ = [k for k in differ if k.startswith("head ")]
         result = {"mean_ms": mean, "b_over_a": ratio,
                   "bwd_digests_equal": not bwd_differ,
                   "fwd_digests_equal": not fwd_differ,
@@ -716,7 +772,12 @@ def ab(tree_a: str, tree_b: str) -> int:
                                    for k in runs[0]["digests"]),
                   "k2_differing_first": k2_differ[:10],
                   "mlp_digests_equal": not mlp_differ,
-                  "mlp_differing": mlp_differ}
+                  "mlp_differing": mlp_differ,
+                  "head_digests_equal": not head_differ,
+                  "head_points": sum(k.startswith("head ")
+                                     for k in runs[0]["digests"]),
+                  "head_differing": head_differ[:10],
+                  "head_probe_passed": passed[_HEAD_PROBE]}
         # the parent (A, run 1) against this tree (B, run 2)
         if fwd_differ:
             result["fwd_differing_first"] = fwd_differ[:10]
@@ -729,6 +790,7 @@ def ab(tree_a: str, tree_b: str) -> int:
                 ("o", "m", "l"))
         print(json.dumps(result), flush=True)
     ok = (not bwd_differ and not k2_differ and not mlp_differ
+          and not head_differ and passed[_HEAD_PROBE]
           and (not fwd_differ or not probe_passed)
           and (not ring_differ or not ring_probe_passed))
     return 0 if ok else 1
@@ -779,6 +841,50 @@ def faults(names=None) -> int:
                 unnoticed.append(name)
     print(json.dumps({"faults_unnoticed": unnoticed}), flush=True)
     return 1 if unnoticed else 0
+
+
+# run inside a checkout: the device ms a call of each kernel K11's wrapper
+# launches (the head's kernels and the copies around them), by
+# torch.profiler over 10 calls at the two timed shapes
+_HEAD_SPLIT = r"""
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from aws_global_accelerator_controller_tpu_torch.kernels import build
+from aws_global_accelerator_controller_tpu_torch.ops import cuda_head as ch
+build.library()
+out = {}
+for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
+    x, w1, b1, w2, b2, ds = cs._head_inputs(T, S, D, H, 13)
+    for _ in range(3):
+        ch.score_head_bwd(x, w1, b1, w2, b2, ds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ch.score_head_bwd(x, w1, b1, w2, b2, ds)
+        torch.cuda.synchronize()
+    out[f"T={T} S={S} D={D} H={H}"] = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", 0)
+              or getattr(e, "cuda_time_total", 0))
+        if us > 0:
+            out[f"T={T} S={S} D={D} H={H}"][e.key[:80]] = us / 1000 / 10
+print(json.dumps(out))
+"""
+
+
+def head_split(trees) -> int:
+    """``head TREE ...``: K11's device ms a call split by kernel (the
+    tensor-core or CUDA-core kernel, the partials' sum, the wrapper's
+    copies) in each checkout, one JSON object a tree."""
+    for tree in trees:
+        r = _run([sys.executable, "-c", _HEAD_SPLIT], Path(tree).resolve())
+        if r.returncode:
+            print(r.stdout, r.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(json.dumps({"tree": tree, "ms_per_call": json.loads(
+            r.stdout.strip().splitlines()[-1])}), flush=True)
+    return 0
 
 
 def profile(steps: int = 3, top: int = 12, window: int = 64,
@@ -1438,7 +1544,7 @@ def ties() -> int:
     return 1 if bad else 0
 
 
-def sass(sources=(_RING_SRC, _MLP_SRC)) -> int:
+def sass(sources=(_RING_SRC, _MLP_SRC, _HEAD_SRC)) -> int:
     """Build checks of kernel sources with the card's toolkit: ``nvcc
     -Xptxas -v`` (registers, stack and spills a kernel, and every ptxas
     warning, such as C7515's serialised wgmma) and ``cuobjdump -sass`` of
@@ -1526,9 +1632,13 @@ def main(argv=None) -> int:
                                          "warnings and tensor-core "
                                          "instructions of kernel sources")
     p_sass.add_argument("sources", nargs="*",
-                        default=[_RING_SRC, _MLP_SRC], metavar="SOURCE",
+                        default=[_RING_SRC, _MLP_SRC, _HEAD_SRC],
+                        metavar="SOURCE",
                         help=f"paths from the checkout (default: "
-                             f"{_RING_SRC} {_MLP_SRC})")
+                             f"{_RING_SRC} {_MLP_SRC} {_HEAD_SRC})")
+    p_head = sub.add_parser("head", help="K11's device time split by "
+                                         "kernel, in each checkout")
+    p_head.add_argument("trees", nargs="+", metavar="TREE")
     sub.add_parser("ties", help="K3's tensor-core re-summing slack: "
                                 "differing values and times at four "
                                 "scales")
@@ -1577,6 +1687,8 @@ def main(argv=None) -> int:
         return sass(tuple(args.sources))
     if args.cmd == "ties":
         return ties()
+    if args.cmd == "head":
+        return head_split(args.trees)
     if args.cmd == "profile":
         return profile(args.steps, window=args.window, groups=args.groups,
                        endpoints=args.endpoints, embed=args.embed,

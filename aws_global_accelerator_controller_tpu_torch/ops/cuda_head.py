@@ -12,6 +12,10 @@ reaching memory.  Like the reference's ``jax.custom_vjp`` ``_head_diff``
 - under autograd, :class:`ScoreHead`: the same forward, and in the
   backward kernel K11 (the reference's ``_bwd_kernel`` ``:90``), which
   recomputes the hidden and gives dx and the four weight gradients.
+  K11 has two routes, chosen inside the library by D and H alone
+  (:func:`bwd_tensor_core_route` asks it): tensor cores for D <= 128
+  and H <= 256, the CUDA-core kernel elsewhere; dx is the same bits on
+  both.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs its plain version.  The plain versions follow the
@@ -213,7 +217,8 @@ def weight_grad_error(got: torch.Tensor, want: torch.Tensor,
 def _operands(name: str, x: torch.Tensor, w1, b1, w2, b2):
     """(device, x as contiguous bf16 [N, Dp], w1 as contiguous [Dp, H],
     b1, w2, b2 contiguous, N, D, H) for the kernels, D zero-padded to
-    Dp, a multiple of :data:`WIDTH_MULTIPLE`; or ValueError."""
+    Dp, a multiple of :data:`WIDTH_MULTIPLE`; or ValueError.  x is taken
+    as it is (a view) where it needs no padding, cast or realignment."""
     dev = require_cuda(name, x, w1, b1, w2, b2)
     D = x.shape[-1]
     H = w1.shape[-1] if w1.dim() == 2 else -1
@@ -223,8 +228,9 @@ def _operands(name: str, x: torch.Tensor, w1, b1, w2, b2):
             raise ValueError(f"{name}: {k} must be bfloat16 {want[k]} with "
                              f"H >= 1, got {p.dtype} {tuple(p.shape)}")
     pad = -D % WIDTH_MULTIPLE
-    x2 = torch.nn.functional.pad(x.reshape(-1, D).to(torch.bfloat16),
-                                 (0, pad)).contiguous()
+    x2 = x.reshape(-1, D).to(torch.bfloat16)
+    if pad or not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = torch.nn.functional.pad(x2, (0, pad)).contiguous()
     w1p = torch.nn.functional.pad(w1, (0, 0, 0, pad)).contiguous()
     N = x2.shape[0]
     if N >= 2 ** 31 - 64 or x2.data_ptr() % 16:
@@ -276,6 +282,17 @@ def score_head_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return (dx[:, :D].to(x.dtype).reshape(x.shape), dw1.to(w1.dtype),
             db1.to(b1.dtype), dw2.reshape(H, 1).to(w2.dtype),
             db2.to(b2.dtype))
+
+
+def bwd_tensor_core_route(D: int, H: int) -> bool:
+    """Whether K11 takes its tensor-core route for rows of width D (padded
+    by the wrapper to a multiple of 8) and H hidden units.  The library
+    alone decides (``agac_score_head_bwd_tc_route``); this asks it, so it
+    builds the kernels and needs the CUDA toolkit."""
+    fn = library().agac_score_head_bwd_tc_route
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return bool(fn(D + -D % WIDTH_MULTIPLE, H))
 
 
 def _bwd_ctas(dev: torch.device, N: int, Dp: int, H: int) -> int:

@@ -49,6 +49,7 @@ from aws_global_accelerator_controller_tpu_torch.ops.cuda_attention import (
 )
 from aws_global_accelerator_controller_tpu_torch.ops import (
     cuda_attention as ca,
+    cuda_head,
     cuda_weights,
 )
 from aws_global_accelerator_controller_tpu_torch.ops.cuda_head import (
@@ -1343,6 +1344,225 @@ def test_wgmma_sums_as_mma_sync(cuda, tmp_path):
                     f"difference {worst!r}")
 
 
+_HEAD_PROBE_SRC = r"""
+#include "flash_common.cuh"
+using namespace agac_flash;
+
+// One problem a CTA of one warpgroup, in the two forms of K11's bit
+// contract (score_head.cu), from x [64 x 128] (rows x D), w [128 x 128]
+// (w1, D x H), dh [64 x 128] (rows x H) and f32 C [64 x 128]:
+// - h: C[:, :64] + x[:, :16 s] . w[:16 s, :64] by wgmma m64n64k16 with x
+//   K-major in SwizzledTile<kDPad> and w's first box of 64 H columns
+//   MN-major (128-byte swizzle), and by the 4 warps x 8 mma.sync m16n8k16
+//   (a_frag, mma_kn) that cover the tile, s = h_steps k16 steps;
+// - dx: C[:, :kDPad] + dh[:, :16 s] . w[:kDPad, :16 s]^T by wgmma with dh
+//   in registers and w K-major (rows of d, two boxes of 64 H columns) in
+//   groups of at most 64 columns, and by 4 x kDPad / 8 mma.sync (mma_nk),
+//   s = dx_steps k16 steps (past 4 the second box).
+template <int kDPad>
+__global__ void __launch_bounds__(128) head_probe(
+    const __nv_bfloat16* x_all, const __nv_bfloat16* w_all,
+    const __nv_bfloat16* dh_all, const float* c_all, int h_steps,
+    int dx_steps, float* h_w, float* h_m, float* dx_w, float* dx_m) {
+  using L = SwizzledTile<kDPad>;
+  constexpr int kBox = kDPad * 128;              // a box of 64 H columns
+  constexpr int kN = kDPad < 64 ? kDPad : 64;    // dx's column groups
+  __shared__ __align__(1024) uint8_t xs[L::kBytes];
+  __shared__ __align__(1024) uint8_t ws[2 * kBox];
+  const int p = blockIdx.x;
+  const __nv_bfloat16* x = x_all + p * 64 * 128;
+  const __nv_bfloat16* w = w_all + p * 128 * 128;
+  const __nv_bfloat16* dh = dh_all + p * 64 * 128;
+  const float* c = c_all + p * 64 * 128;
+  for (int i = threadIdx.x; i < 64 * (kDPad / 8); i += 128) {
+    const int r = i / (kDPad / 8), j = i % (kDPad / 8);
+    *reinterpret_cast<uint4*>(xs + L::chunk(r, j)) =
+        *reinterpret_cast<const uint4*>(x + r * 128 + 8 * j);
+  }
+  for (int i = threadIdx.x; i < kDPad * 16; i += 128) {
+    const int d = i / 16, j = i % 16;
+    *reinterpret_cast<uint4*>(ws + (j / 8) * kBox + d * 128 +
+                              (((j % 8) ^ (d % 8)) << 4)) =
+        *reinterpret_cast<const uint4*>(w + d * 128 + 8 * j);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp + lane / 4, tq = lane % 4;
+
+  float hw[8][4], hm[8][4], dw[kDPad / 8][4], dm[kDPad / 8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      hw[j][i] = hm[j][i] =
+          c[(r0 + 8 * (i >> 1)) * 128 + 8 * j + 2 * tq + (i & 1)];
+#pragma unroll
+  for (int j = 0; j < kDPad / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dw[j][i] = dm[j][i] =
+          c[(r0 + 8 * (i >> 1)) * 128 + 8 * j + 2 * tq + (i & 1)];
+  uint32_t xf[kDPad / 16][4], af[8][4];
+#pragma unroll
+  for (int kk = 0; kk < kDPad / 16; ++kk)
+    a_frag(xf[kk], x, 128, 16 * warp, kk);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) a_frag(af[kk], dh, 128, 16 * warp, kk);
+
+  fence_acc(hw);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDPad / 16; ++kk)
+    if (kk < h_steps)
+      wgmma_ss<64, false, true, 0>(
+          hw, gmma_desc<L::kSwz>(xs) + (L::k_step(kk) >> 4),
+          gmma_desc<128>(ws) + ((kk * 16 * 128) >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(hw);
+  fence_acc(dw);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    if (kk < dx_steps)
+      wgmma_rs_groups<kN, kDPad / kN, 64 * 128, false>(
+          dw, af[kk], gmma_desc<128>(ws + (kk / 4) * kBox) +
+                          (((kk % 4) * 32) >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dw);
+
+#pragma unroll
+  for (int kk = 0; kk < kDPad / 16; ++kk) {
+    if (kk >= h_steps) break;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) mma_kn(hm[nt], xf[kk], w, 128, 8 * nt, kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk >= dx_steps) break;
+#pragma unroll
+    for (int nt = 0; nt < kDPad / 8; ++nt)
+      mma_nk(dm[nt], af[kk], w, 128, 8 * nt, kk);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int at = p * 64 * 64 + (r0 + 8 * (i >> 1)) * 64 + 8 * j +
+                     2 * tq + (i & 1);
+      h_w[at] = hw[j][i];
+      h_m[at] = hm[j][i];
+    }
+#pragma unroll
+  for (int j = 0; j < kDPad / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int at = (p * 64 + r0 + 8 * (i >> 1)) * kDPad + 8 * j + 2 * tq +
+                     (i & 1);
+      dx_w[at] = dw[j][i];
+      dx_m[at] = dm[j][i];
+    }
+}
+
+extern "C" int run_head_probe(int dpad, const void* x, const void* w,
+                              const void* dh, const void* c, int problems,
+                              int h_steps, int dx_steps, void* h_w, void* h_m,
+                              void* dx_w, void* dx_m) {
+  using bf = __nv_bfloat16;
+  auto args = [&](auto kernel) {
+    kernel<<<problems, 128>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(w),
+        static_cast<const bf*>(dh), static_cast<const float*>(c), h_steps,
+        dx_steps, static_cast<float*>(h_w), static_cast<float*>(h_m),
+        static_cast<float*>(dx_w), static_cast<float*>(dx_m));
+  };
+  if (dpad == 16) args(head_probe<16>);
+  else if (dpad == 32) args(head_probe<32>);
+  else if (dpad == 64) args(head_probe<64>);
+  else args(head_probe<128>);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _head_probe_operands(problems, seed):
+    """bf16 x [P, 64, 128], w [P, 128, 128] (d x j), dh [P, 64, 128] and
+    f32 C [P, 64, 128], exponents as ``_probe_operands``'; in problems
+    1, 4, 7, ... h's terms cancel (the second half of each k16 step over
+    d repeats the first with the other sign, to a bf16 ulp, and C is
+    minus a row's product), in problems 2, 5, 8, ... dx's (over j)."""
+    rng = np.random.default_rng(seed)
+    x = _wide(rng, (problems, 64, 128), -12, 12)
+    w = _wide(rng, (problems, 128, 128), -12, 12)
+    dh = _wide(rng, (problems, 64, 128), -12, 12)
+    c = _wide(rng, (problems, 64, 128), -20, 20)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    x, w, dh = bf(x), bf(w), bf(dh)
+    for p in range(problems):
+        nudge = torch.from_numpy(
+            rng.choice([1.0, 1.0078125], (128, 8))).to(torch.bfloat16)
+        if p % 3 == 1:
+            for k0 in range(0, 128, 16):
+                x[p, :, k0 + 8:k0 + 16] = x[p, :, k0:k0 + 8]
+                w[p, k0 + 8:k0 + 16] = -w[p, k0:k0 + 8] * nudge.t()
+            first = (x[p].float() @ w[p].float())[:, :64]
+            c[p, :, :64] = -first.numpy() * rng.choice([1.0, 0.5], (64, 64))
+        elif p % 3 == 2:
+            for k0 in range(0, 128, 16):
+                dh[p, :, k0 + 8:k0 + 16] = dh[p, :, k0:k0 + 8]
+                w[p, :, k0 + 8:k0 + 16] = -w[p, :, k0:k0 + 8] * nudge
+            first = dh[p].float() @ w[p].float().t()
+            c[p] = -first.numpy() * rng.choice([1.0, 0.5], (64, 128))
+    return x, w, dh, torch.from_numpy(c)
+
+
+def test_score_head_wgmma_forms_sum_as_mma_sync(cuda, tmp_path):
+    """The bit contract of K11's dx and relu gates (csrc/score_head.cu):
+    from the same f32 accumulators, h = x . w1 by wgmma m64n64k16 with x
+    K-major (SwizzledTile of 16, 32, 64 and 128 columns, so 32-, 64- and
+    128-byte swizzles) and w1 MN-major from a 128-byte-swizzled box, one
+    and every k16 step of D; and dx = dh . w1^T by wgmma with dh in
+    registers and w1 K-major from the same boxes at N = 16, 32, 64 and
+    128 (two groups of 64), one, four and eight k16 steps (the eighth in
+    the second box), give every f32 bit that the mma.sync m16n8k16 steps
+    covering the same tile give, over bf16 operands whose products span
+    2^-24..2^24 and terms that cancel."""
+    src = tmp_path / "head_probe.cu"
+    src.write_text(_HEAD_PROBE_SRC)
+    lib = tmp_path / "head_probe.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                    f"-I{build.CSRC}", str(src), "-o", str(lib)],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    problems = 192
+    x, w, dh, c = (t.to(cuda) for t in _head_probe_operands(problems, 0))
+    for dpad in (16, 32, 64, 128):
+        for h_steps, dx_steps in ((1, 1), (dpad // 16, 4), (dpad // 16, 8)):
+            out = [torch.full((problems, 64, n), float("nan"), device=cuda)
+                   for n in (64, 64, dpad, dpad)]
+            ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (x, w, dh, c)]
+            assert so.run_head_probe(
+                ctypes.c_int(dpad), *ptrs, ctypes.c_int(problems),
+                ctypes.c_int(h_steps), ctypes.c_int(dx_steps),
+                *[ctypes.c_void_p(t.data_ptr()) for t in out]) == 0
+            torch.cuda.synchronize()
+            for name, steps, got, want in (("h", h_steps, out[0], out[1]),
+                                           ("dx", dx_steps, out[2], out[3])):
+                assert bool(torch.isfinite(want).all()), (name, dpad, steps)
+                diff = got.view(torch.int32) != want.view(torch.int32)
+                if bool(diff.any()):
+                    p, r, col = (int(i) for i in diff.nonzero()[0])
+                    raise AssertionError(
+                        f"{name} at D = {dpad}, {steps} k16 steps: "
+                        f"{int(diff.sum())} of {diff.numel()} sums differ; "
+                        f"first at problem {p}, row {r}, column {col}: "
+                        f"wgmma {float(got[p, r, col])!r}, mma.sync "
+                        f"{float(want[p, r, col])!r}; largest difference "
+                        f"{float((got - want).abs().max())!r}")
+
+
 _SPLIT_PROBE_SRC = r"""
 #include "flash_common.cuh"
 using namespace agac_flash;
@@ -1737,6 +1957,79 @@ def test_score_head_backward_is_reproducible_and_autograd_takes_it(cuda):
     counts = build.launch_counts()
     assert (counts["score_head_fwd"], counts["score_head_bwd"]) == (1, 1)
     assert all(torch.equal(a, b) for a, b in zip(got, runs[0]))
+
+
+#: the route's predicate in csrc/score_head.cu, forced off in a copy
+_HEAD_ROUTE = "  return D <= kMaxDPad && H <= kTcMaxH;"
+
+
+@pytest.fixture(scope="module")
+def cuda_core_head(tmp_path_factory):
+    """``csrc/score_head.cu`` built alone with its tensor-core route
+    forced off: every width on the CUDA-core kernel, the parent's K11."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    src_text = (build.CSRC / "score_head.cu").read_text()
+    assert src_text.count(_HEAD_ROUTE) == 1
+    tmp = tmp_path_factory.mktemp("cuda_core_head")
+    src = tmp / "score_head.cu"
+    src.write_text(src_text.replace(_HEAD_ROUTE, "  return false;"))
+    lib = tmp / "score_head.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                    f"-I{build.CSRC}", str(src), "-o", str(lib)],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    so.agac_score_head_bwd_ctas.argtypes = [ctypes.c_int] * 3
+    so.agac_score_head_bwd.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    so.agac_score_head_bwd_tc_route.argtypes = [ctypes.c_int] * 2
+    return so
+
+
+def _cuda_core_dx(so, x, w1, b1, w2, b2, ds):
+    """dx of the CUDA-core build on the inputs ``score_head_bwd`` takes."""
+    dev, x2, w1p, b1c, w2c, _, N, D, H = cuda_head._operands(
+        "cuda_core_dx", x, w1, b1, w2, b2)
+    Dp = x2.shape[1]
+    assert so.agac_score_head_bwd_tc_route(Dp, H) == 0
+    ctas = so.agac_score_head_bwd_ctas(N, Dp, H)
+    assert ctas > 0
+    n = Dp * H + 2 * H + 1
+    dx = torch.empty_like(x2)
+    partials = torch.empty((ctas, n), dtype=torch.float32, device=dev)
+    sums = torch.zeros(n, dtype=torch.float32, device=dev)
+    dsf = ds.float().contiguous()
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (
+        x2, dsf, w1p, b1c, w2c, dx, partials, sums)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert so.agac_score_head_bwd(*args, N, Dp, H, ctas,
+                                  ctypes.c_void_p(stream)) == 0
+    return dx[:, :D].reshape(x.shape)
+
+
+@pytest.mark.parametrize("T,S,D,H", [
+    *((19, 37, D, H) for D in (8, 20, 96, 128, 160)
+      for H in (16, 128, 200, 256, 512)),
+    (64, 1000, 32, 128), (256, 128, 128, 256)])
+def test_score_head_backward_tensor_cores_keep_the_parents_dx(
+        cuda, cuda_core_head, T, S, D, H):
+    """K11's dx on its tensor-core route (D <= 128, H <= 256) equals bit
+    for bit the CUDA-core kernel's, the parent's K11, built from the same
+    source with the route forced off, on the same inputs: the card tests'
+    sweep (703 rows), the train command's widths over many row tiles and
+    the reference's head shape.  Widths off the route compare the kernel
+    with itself.  The train command's shape and the reference's head
+    shape take the route."""
+    if (D, H) in ((32, 128), (128, 256)):
+        assert cuda_head.bwd_tensor_core_route(D, H)
+    x, w1, b1, w2, b2, ds = _head_inputs(cuda, T, S, D, H, D * H + T)
+    got = score_head_bwd(x, w1, b1, w2, b2, ds)[0]
+    want = _cuda_core_dx(cuda_core_head, x, w1, b1, w2, b2, ds)
+    torch.cuda.synchronize()
+    diff = got.view(torch.int16) != want.view(torch.int16)
+    assert not bool(diff.any()), (
+        f"{int(diff.sum())} of {diff.numel()} dx values differ, first at "
+        f"{tuple(int(i) for i in diff.nonzero()[0])}")
 
 
 def test_score_head_refuses_what_it_cannot_take(cuda):

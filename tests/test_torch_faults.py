@@ -66,3 +66,11 @@ def test_every_k3_fault_is_planted_in_the_mlp():
           if src.endswith("csrc/mlp.cu")}
     assert k3 == {"layer2_drops_last_k16_step", "layer3_skips_last_chunk",
                   "plan_group_from_first_tile_only"}
+
+
+def test_every_k11_fault_is_planted_in_the_score_head():
+    k11 = {name for name, (src, _, _) in FAULTS.items()
+           if src.endswith("csrc/score_head.cu")}
+    assert k11 == {"dx_skips_last_k16_step", "dw1_first_tile_only",
+                   "dh_without_relu_gate", "half_partials",
+                   "zero_weight_grads"}
