@@ -84,7 +84,11 @@
 //     256, no spills.
 //   * Shared memory: at H = 256 the weights and h1's copy take 205 KB,
 //     which leaves the plan entry room for a group of up to 2752 rows
-//     (43 tiles); a larger E there returns cudaErrorInvalidValue.
+//     (43 tiles; 12288 at H = 192, 19776 at 128, 25216 at 64).  A plan
+//     whose item does not fit takes the CUDA-core route, which gives the
+//     same values (plan_tc_route, asked by agac_mlp_plan_tc_route);
+//     launch_tc still refuses such an item with cudaErrorInvalidValue, a
+//     guard no caller reaches.
 //   * Bits: a row's score is the CUDA-core route's (on every row that
 //     chip_checks.py ties and the card tests drew), so it does not
 //     depend on the batch either, and the plan entry's scores are the
@@ -412,6 +416,35 @@ template <int kH>
 __host__ __device__ inline int tc_smem_bytes(int item_tiles) {
   return TcShape<kH>::kFixedBytes +
          static_cast<int>(sizeof(float)) * kTcGroups * item_tiles * kTile;
+}
+
+// the most tiles a plan item may have beside the weights at kH: the
+// tc_smem_bytes that fit in kTcMaxSmem
+template <int kH>
+constexpr int tc_max_plan_tiles() {
+  return (kTcMaxSmem - TcShape<kH>::kFixedBytes) /
+         (static_cast<int>(sizeof(float)) * kTcGroups * kTile);
+}
+
+inline bool tc_plan_fits(int H, int item_tiles) {
+  return item_tiles <= (H == 64    ? tc_max_plan_tiles<64>()
+                        : H == 128 ? tc_max_plan_tiles<128>()
+                        : H == 192 ? tc_max_plan_tiles<192>()
+                                   : tc_max_plan_tiles<256>());
+}
+
+// the rows of a plan item on the tensor-core route: floor(64 / E) whole
+// groups in one tile, or one group
+inline int tc_plan_item_rows(int E) {
+  return E <= kTile ? (kTile / E) * E : E;
+}
+
+// the plan entry's route: the tensor cores where tc_route holds and the
+// item fits their shared memory; a group too large for it takes the
+// CUDA-core route, which gives the same values
+inline bool plan_tc_route(int E, int F, int H) {
+  return tc_route(F, H) &&
+         tc_plan_fits(H, (tc_plan_item_rows(E) + kTile - 1) / kTile);
 }
 
 // One 16-byte chunk (8 columns from column 8 j) of row k of a row-major
@@ -984,15 +1017,18 @@ extern "C" int agac_mlp_plan(const void* x, const void* mask, const void* w1,
                              const void* b1, const void* w2, const void* b2,
                              const void* w3, const void* b3, void* out,
                              long long G, int E, int F, int H, void* stream) {
-  if (tc_route(F, H)) {
-    // an item: floor(64 / E) whole groups in one tile, or one group
-    const int item_rows = E <= kTile ? (kTile / E) * E : E;
+  if (plan_tc_route(E, F, H))
     return dispatch_tc<true>(x, mask, w1, b1, w2, b2, w3, b3, nullptr, out,
-                             G * E, F, H, E, item_rows, stream);
-  }
+                             G * E, F, H, E, tc_plan_item_rows(E), stream);
   const int groups_per_block = E >= kBlockRows ? 1 : kBlockRows / E;
   return dispatch<true>(x, mask, w1, b1, w2, b2, w3, b3, nullptr, out, G * E,
                         F, H, E, groups_per_block * E, stream);
+}
+
+// 1 where agac_mlp_plan takes its tensor-core route for groups of E
+// rows of F features and H hidden units, else 0.
+extern "C" int agac_mlp_plan_tc_route(int E, int F, int H) {
+  return plan_tc_route(E, F, H) ? 1 : 0;
 }
 
 // rows [N, F] bf16 -> scores [N] f32

@@ -197,16 +197,38 @@ a comparison across devices.
 
 ``fleet_sharded --ring-only``: kernel K5 alone on a data axis of every
 rank.  ``--passes`` (200) reduces back to back, each of its own seeded
-[5] f32 vectors of arbitrary magnitudes, through the card's ring; then
-the same vectors' CPU copies through the plain ring (gloo) among the
-same ranks, and each rank's numpy sum in the reference's hop order:
-every sum must equal both bit for bit, and a ring run on the card with
-one hop fewer must be caught by the same comparison; at the end the
-ranks close the ring's slots (unmap and free).  Times: the
-ring's per-pass wall ms (hops, synchronises, barriers), the plain
-ring's, gloo's ``all_reduce`` of the same vector on the card (staged:
-NCCL refuses two ranks on one card), and one hop launch's device ms
-(CUDA events over a CUDA graph of launches) and eager ms.
+[5] f32 vectors of arbitrary magnitudes, through the card's exchange;
+then the same vectors' CPU copies through the plain ring (gloo) among
+the same ranks, and each rank's numpy sum in the reference's hop order:
+every sum must equal both bit for bit.  Three planted faults, each
+arranged so that its miss is certain, must fail the hop-order
+comparison: a sum that leaves out a slot; a sum that skips its wait on
+the peers' ``sent`` and runs before any rank sends (a second barrier);
+a send that skips its wait on the peers' ``read`` and lands, two passes
+on, before the sum it overwrites has run (a second barrier).  At the
+end the ranks close the exchange (unmap, destroy the events, free).
+Times: the exchange's ms a pass to completion (the passes back to back,
+one synchronise), the plain ring's, gloo's ``all_reduce`` of the same
+vector on the card (staged: NCCL refuses two ranks on one card), and
+the send's and the sum's device ms (a CUDA graph of launches, no event)
+and eager ms.
+
+``ring_probe``, run by ``torch.distributed.run``: K5's mechanism on
+the ranks of one card.  A launch, a stream synchronise after a launch
+and a gloo barrier, each timed alone in ``--loops`` (200), and the
+parent's pass from them (n launches, n - 1 synchronises, n - 1
+barriers); a pass to completion with the events, with the fallback's
+synchronise and barrier, and with neither (unordered; the events'
+waits are its difference from the first), the three in turn, medians;
+then ``--rounds`` (10,000) passes of integer blocks, each send after a
+sleep on its stream (one rank in turn sleeping past a barrier every
+16th round), every sum held to the hop order, and 1000 rounds whose
+sums skip their wait on ``sent``, as a control that must read some
+late slot early.
+
+``ring_ab TREE_A TREE_B``: K5's pass to completion (200 back to back,
+one synchronise) and gloo's ``all_reduce`` on 4 ranks of card 0 in two
+checkouts, A B B A twice after an uncounted run of each.
 
 ``gloo``, run by ``torch.distributed.run`` on 2 ranks: whether gloo
 takes CUDA tensors as they are (``all_reduce``, ``all_gather`` and a
@@ -225,6 +247,8 @@ Run from the root of a checkout, on a machine with one card::
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ring --device cuda:0
     python3 -m torch.distributed.run --standalone --nproc-per-node 2 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks gloo --device cuda:0
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks fleet_sharded --device cuda:0 [--fleet resident --groups 1000000 --cap 4] [--ring-only]
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ring_probe --device cuda:0 [--rounds 10000]
+    python3 -m aws_global_accelerator_controller_tpu_torch.kernels.chip_checks ring_ab build/parent .
 
 Each prints one JSON object a run (a train step setting), and ``faults``
 exits non-zero if a fault went unnoticed.
@@ -700,10 +724,47 @@ def _max_ulps(a_runs: str, b_runs: str, points,
     return worst
 
 
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], ROOT, timeout=60).stdout.strip()
+
+
+def _ab_runs(tree_a: str, tree_b: str, run, rounds: int = 1,
+             warm: bool = False):
+    """``run(label, tree)`` on two checkouts in the order A B B A,
+    ``rounds`` times (a drift of the card over the call weighs on both
+    alike), after one uncounted run of each if ``warm``.  Returns the
+    counted runs' [(label, result)], or None at the first run whose
+    result is None."""
+    trees = {"A": tree_a, "B": tree_b}
+    order = (("A", "B") if warm else ()) + ("A", "B", "B", "A") * rounds
+    counted = []
+    for at, label in enumerate(order):
+        res = run(label, trees[label])
+        if res is None:
+            return None
+        if not warm or at >= 2:
+            counted.append((label, res))
+    return counted
+
+
+def _ab_means(runs, samples) -> dict:
+    """{label: {key: mean}} over ``runs`` ([(label, result)]), a result's
+    values of each key given by ``samples(result)`` ({key: [values]})."""
+    mean = {}
+    for label in ("A", "B"):
+        vals: dict = {}
+        for at, res in runs:
+            if at == label:
+                for key, v in samples(res).items():
+                    vals.setdefault(key, []).extend(v)
+        mean[label] = {k: sum(v) / len(v) for k, v in vals.items()}
+    return mean
+
+
 def ab(tree_a: str, tree_b: str) -> int:
-    card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"], ROOT, timeout=60)
-    print(json.dumps({"card": card.stdout.strip()}), flush=True)
+    print(json.dumps({"card": _card()}), flush=True)
     passed = {}
     for test in (_PROBE, _RING_PROBE, _HEAD_PROBE):
         probe = _run([sys.executable, "-m", "pytest", "--noconftest", "-q",
@@ -717,14 +778,14 @@ def ab(tree_a: str, tree_b: str) -> int:
     probe_passed, ring_probe_passed = passed[_PROBE], passed[_RING_PROBE]
     with tempfile.TemporaryDirectory() as tmp:
         runs = []
-        for i, (name, tree) in enumerate((("A", tree_a), ("B", tree_b),
-                                          ("B", tree_b), ("A", tree_a))):
-            saved = str(Path(tmp) / f"run{i}.pt")
+
+        def one(name, tree):
+            saved = str(Path(tmp) / f"run{len(runs)}.pt")
             r = _run([sys.executable, "-c", _TIME, saved,
                       str(ROOT / "chip_smoke.py")], Path(tree).resolve())
             if r.returncode:
                 print(r.stdout, r.stderr[-4000:], file=sys.stderr)
-                return 1
+                return None
             res = json.loads(r.stdout.strip().splitlines()[-1])
             runs.append({"tree": name, "path": tree, "saved": saved, **res})
             print(json.dumps({"tree": name, "path": tree, "ms": res["ms"],
@@ -738,9 +799,13 @@ def ab(tree_a: str, tree_b: str) -> int:
                                               ("k2 sweep", "k2 equal",
                                                "head dx sweep"))}}),
                   flush=True)
-        mean = {name: {k: sum(r["ms"][k] for r in runs
-                              if r["tree"] == name) / 2
-                       for k in runs[0]["ms"]} for name in ("A", "B")}
+            return res
+
+        counted = _ab_runs(tree_a, tree_b, one)
+        if counted is None:
+            return 1
+        mean = _ab_means(counted, lambda res: {k: [v] for k, v in
+                                               res["ms"].items()})
         ratio = {k: mean["B"][k] / mean["A"][k] for k in mean["A"]}
         for shape in _AB_SHAPES:
             pair = [mean[t][f"flash_bwd_{n} {shape}"] for t in ("A", "B")
@@ -1252,29 +1317,94 @@ def fleet_sharded(device: str = "cuda", fleet_kind: str = "bench",
         return 0
 
 
-def _skip_a_hop(slots, stats):
-    """Kernel K5 driven one hop short: the fault the ring check must
-    catch."""
+def _int_blocks(passes: int, n: int, k: int):
+    """[passes, n, k] f32 blocks of distinct small integers, each pass's
+    above every earlier one's: sums are exact, and a slot left out, read
+    before its store or overwritten by a later pass changes them."""
+    import numpy as np
+
+    p, s, c = np.meshgrid(np.arange(passes), np.arange(n), np.arange(k),
+                          indexing="ij")
+    return ((p + 1) * 64 + s * 8 + c + 1).astype(np.float32)
+
+
+def _hop_order(blocks, i: int):
+    """Rank i's sum of ``blocks`` [n, k] in the reference's hop order."""
+    import numpy as np
+
+    n = blocks.shape[0]
+    acc = blocks[i].copy()
+    for h in range(1, n):
+        acc = (acc + blocks[(i - h) % n]).astype(np.float32)
+    return acc
+
+
+def _k5_faults(slots, dev, k: int):
+    """Kernel K5's three planted faults, each arranged so that its miss is
+    certain, on blocks of ``_int_blocks``: two correct passes before them
+    (the slots then hold known blocks) and one between and one after
+    fault (c), which must be right.  Returns (fault -> caught, whether
+    the correct passes were right)."""
+    import numpy as np
     import torch
 
-    from ..ops.cuda_ring import stats_ring_hop
+    from ..ops.cuda_ring import (
+        _SUM,
+        PARITIES,
+        SLOT_FLOATS,
+        _waits,
+        stats_ring_cuda,
+        stats_ring_send,
+        stats_ring_sum,
+    )
 
-    x = stats.contiguous()
-    acc = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device)
-    for h in range(slots.group.size - 2):
-        g = slots.hops
-        src = x if h == 0 else slots.own_slot(g - 1)
-        stats_ring_hop(src, slots.peer_slot(g), acc, x.numel(), h > 0)
-        stream.synchronize()
-        slots.group.barrier()
-        slots.hops = g + 1
-    if slots.group.size > 2:
-        stats_ring_hop(slots.own_slot(slots.hops - 1), None, acc,
-                       x.numel(), True)
-    else:
-        acc.copy_(x)
-    return acc
+    group = slots.group
+    n, i = group.size, group.index
+    blocks = _int_blocks(7, n, k)
+    xs = [torch.from_numpy(b[i].copy()).to(dev) for b in blocks]
+
+    def same(got, p):
+        return np.array_equal(got.cpu().numpy().view(np.int32),
+                              _hop_order(blocks[p], i).view(np.int32))
+
+    def parity():
+        q = slots.passes % PARITIES
+        slots.passes += 1
+        return q
+
+    right = [same(stats_ring_cuda(slots, xs[p]), p) for p in (0, 1)]
+    # (a) the sum leaves out the last slot
+    q = parity()
+    stats_ring_send(slots, xs[2], q, slots.peer_read[q], slots.sent[q])
+    group.barrier()
+    a = torch.empty_like(xs[2])
+    _SUM(dev, xs[2], slots.slots(q), n - 1, a, k, SLOT_FLOATS,
+         *_waits(slots.peer_sent[q]), slots.read[q])
+    # (b) the sum skips its wait on sent[q] and runs to its end before any
+    # rank sends (a second barrier): it reads pass 1's blocks
+    q = parity()
+    b = stats_ring_sum(slots, xs[3], q, (), slots.read[q])
+    torch.cuda.synchronize(dev)
+    group.barrier()
+    stats_ring_send(slots, xs[3], q, slots.peer_read[q], slots.sent[q])
+    group.barrier()
+    # (c) pass 4's sum is held back until pass 6's send, which skips its
+    # wait on read[q], has landed in the same slots (a second barrier)
+    q = parity()
+    stats_ring_send(slots, xs[4], q, slots.peer_read[q], slots.sent[q])
+    group.barrier()
+    right.append(same(stats_ring_cuda(slots, xs[5]), 5))
+    parity()
+    stats_ring_send(slots, xs[6], q, (), slots.sent[q])
+    torch.cuda.synchronize(dev)
+    group.barrier()
+    c = stats_ring_sum(slots, xs[4], q, slots.peer_sent[q], slots.read[q])
+    right.append(same(stats_ring_sum(slots, xs[6], q, slots.peer_sent[q],
+                                     slots.read[q]), 6))
+    caught = {"sum_skips_a_slot": not same(a, 2),
+              "sum_skips_its_sent_wait": not same(b, 3),
+              "send_skips_its_read_wait": not same(c, 4)}
+    return caught, all(right)
 
 
 def stats_ring_check(device: str = "cuda", passes: int = 200,
@@ -1288,7 +1418,8 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
         close_peer_slots,
         launches_per_pass,
         peer_slots,
-        stats_ring_hop,
+        stats_ring_send,
+        stats_ring_sum,
     )
     from ..parallel.distributed import join_world, peer_bytes, staged_bytes
     from ..parallel.fleet_plan import _make_stats_ring
@@ -1304,13 +1435,20 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
                     np.float32)
         reduce = _make_stats_ring(group, dev)
         on_card = dev.type == "cuda"
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(dev)
+
         mine = [torch.from_numpy(v[i].copy()).to(dev) for v in vecs]
-        if on_card:
-            torch.cuda.synchronize(dev)
+        sync()
+        group.barrier()
         reset_launch_counts()
         staged0, peer0 = staged_bytes(), peer_bytes()
+        # to completion: on the card the passes are asynchronous
         t0 = time.perf_counter()
         sums = [reduce(x) for x in mine]
+        sync()
         pass_ms = (time.perf_counter() - t0) * 1e3 / passes
         launches = launch_counts().get("stats_ring", 0)
         staged = staged_bytes() - staged0
@@ -1321,12 +1459,7 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
         plain = torch.stack([plain_reduce(torch.from_numpy(v[i].copy()))
                              for v in vecs]).numpy()
         plain_ms = (time.perf_counter() - t0) * 1e3 / passes
-        want = np.empty_like(got)
-        for p, v in enumerate(vecs):
-            acc = v[i].copy()
-            for h in range(1, n):
-                acc = (acc + v[(i - h) % n]).astype(np.float32)
-            want[p] = acc
+        want = np.stack([_hop_order(v, i) for v in vecs])
         equal_plain = bool(np.array_equal(got.view(np.int32),
                                           plain.view(np.int32)))
         equal_numpy = bool(np.array_equal(got.view(np.int32),
@@ -1340,38 +1473,40 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
                "max_abs_err_vs_plain": max_err}
         if on_card:
             slots = peer_slots(group, dev)
-            short = _skip_a_hop(slots, mine[0])
-            rec["skipped_hop_caught"] = not np.array_equal(
-                short.cpu().numpy().view(np.int32), want[0].view(np.int32))
-            group.barrier()
             x = mine[0]
-            w = group.all_reduce(x)                           # warm
-            torch.cuda.synchronize(dev)
+            group.all_reduce(x)                               # warm
+            sync()
+            group.barrier()
             t0 = time.perf_counter()
-            for x in mine:
-                w = group.all_reduce(x)
-            torch.cuda.synchronize(dev)
+            for y in mine:
+                group.all_reduce(y)
+            sync()
             rec["gloo_all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 \
                 / passes
-            acc = torch.empty_like(x)
             cs = _chip_smoke()
-
-            def hop():
-                stats_ring_hop(x, slots.peer_slot(slots.hops), acc, k, True)
-
+            # the launches alone: no event waited on or recorded (a CUDA
+            # graph holds neither); their stores land in slots that the
+            # faults' first passes overwrite
+            for name, fn in (
+                    ("send",
+                     lambda: stats_ring_send(slots, x, 0, (), None)),
+                    ("sum",
+                     lambda: stats_ring_sum(slots, x, 0, (), None))):
+                group.barrier()
+                rec[f"{name}_device_ms"] = cs.time_device(fn)
+                rec[f"{name}_eager_ms"] = cs.time_eager(fn)
+            sync()
             group.barrier()
-            rec["hop_device_ms"] = cs.time_device(hop)
-            rec["hop_eager_ms"] = cs.time_eager(hop)
-            torch.cuda.synchronize(dev)
-            group.barrier()
+            rec["faults_caught"], rec["passes_beside_faults_right"] = \
+                _k5_faults(slots, dev, k)
             close_peer_slots()
         ranks = group.gather_objects(rec)
         if world.rank:
             return 0
-        bad = [f"rank {r['rank']}: the ring's sums differ from the plain "
-               f"ring's" for r in ranks if not r["equal_to_plain"]]
-        bad += [f"rank {r['rank']}: the ring's sums differ from the hop "
-                f"order's numpy sums" for r in ranks
+        bad = [f"rank {r['rank']}: the sums differ from the plain ring's"
+               for r in ranks if not r["equal_to_plain"]]
+        bad += [f"rank {r['rank']}: the sums differ from the hop order's "
+                f"numpy sums" for r in ranks
                 if not r["equal_to_numpy_hop_order"]]
         for r in ranks:
             if on_card and r["launches"] != passes * launches_per_pass(n):
@@ -1381,9 +1516,13 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
             if r["staged_bytes"]:
                 bad.append(f"rank {r['rank']} staged {r['staged_bytes']} "
                            f"bytes")
-            if on_card and not r["skipped_hop_caught"]:
-                bad.append(f"rank {r['rank']}: a ring one hop short went "
-                           f"unnoticed")
+            if not on_card:
+                continue
+            bad += [f"rank {r['rank']}: fault {f} went unnoticed"
+                    for f, c in r["faults_caught"].items() if not c]
+            if not r["passes_beside_faults_right"]:
+                bad.append(f"rank {r['rank']}: a correct pass beside the "
+                           f"faults went wrong")
         print(json.dumps({"phase": "stats_ring", "device": str(dev),
                           "world": n, "k": k, "passes": passes,
                           "launches_per_pass": launches_per_pass(n),
@@ -1392,6 +1531,259 @@ def stats_ring_check(device: str = "cuda", passes: int = 200,
             print("stats_ring: " + "; ".join(bad), file=sys.stderr)
             return 1
         return 0
+
+
+#: ``ring_probe``'s sleeps before a send, in clock cycles: every round's,
+#: and the late rank's every LATE_EVERY-th round (about 2.5 ms at the
+#: H100's 1.98 GHz, past a gloo barrier's 0.84 ms)
+SLEEP, LATE_SLEEP, LATE_EVERY = 20_000, 5_000_000, 16
+
+
+def ring_probe(device: str = "cuda", loops: int = 200,
+               rounds: int = 10000, k: int = 5) -> int:
+    """K5's mechanism on the card, every rank of the world on one data
+    axis (see the module's docstring)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from ..ops.cuda_ring import (
+        PARITIES,
+        close_peer_slots,
+        peer_slots,
+        stats_ring_cuda,
+        stats_ring_send,
+        stats_ring_sum,
+    )
+    from ..parallel.distributed import join_world
+    from ..parallel.mesh import make_mesh
+
+    with join_world(device) as world:
+        dev = world.device
+        if dev.type != "cuda":
+            raise ValueError("ring_probe runs on the card")
+        group = make_mesh(world, ("data",)).groups["data"]
+        n, i = group.size, group.index
+        slots = peer_slots(group, dev)
+        stream = torch.cuda.current_stream(dev)
+        x = torch.ones(k, device=dev)
+        rec = {"rank": i}
+
+        def timed(name, body, part=None):
+            """ms a call of ``body`` (to completion) over ``loops`` calls,
+            every rank looping together; with ``part``, only ``part``'s
+            share of each ``body(); part()``."""
+            torch.cuda.synchronize(dev)
+            group.barrier()
+            total = 0.0
+            t0 = time.perf_counter()
+            for _ in range(loops):
+                body()
+                if part is not None:
+                    t1 = time.perf_counter()
+                    part()
+                    total += time.perf_counter() - t1
+            if part is None:
+                torch.cuda.synchronize(dev)
+                total = time.perf_counter() - t0
+            rec[name] = total * 1e3 / loops
+
+        def launch():
+            stats_ring_send(slots, x, 0, (), None)
+
+        # the parent's pass of n launches, n - 1 stream synchronises and
+        # n - 1 barriers, each part timed alone
+        timed("launch_ms", launch)
+        timed("synchronize_ms", launch, stream.synchronize)
+        timed("barrier_ms", group.barrier)
+        rec["parent_pass_from_parts_ms"] = (
+            n * rec["launch_ms"]
+            + (n - 1) * (rec["synchronize_ms"] + rec["barrier_ms"]))
+
+        # a pass to completion: with the events; the fallback's (send,
+        # synchronise, barrier, sum: no event); the same launches and
+        # barrier with neither (unordered: its sums are not read), whose
+        # difference from the first is the events' waits; and passes
+        # back to back, synchronised once
+        def unevented(synchronise):
+            q = slots.passes % PARITIES
+            stats_ring_send(slots, x, q, (), None)
+            if synchronise:
+                stream.synchronize()
+            group.barrier()
+            stats_ring_sum(slots, x, q, (), None)
+            slots.passes += 1
+            torch.cuda.synchronize(dev)
+
+        def with_events():
+            stats_ring_cuda(slots, x)
+            torch.cuda.synchronize(dev)
+
+        # the three in turn, each pass timed alone, so that a drift of the
+        # host falls on all three alike; medians
+        variants = (("with_events", with_events),
+                    ("fallback", lambda: unevented(True)),
+                    ("unordered", lambda: unevented(False)))
+        times = {name: [] for name, _ in variants}
+        torch.cuda.synchronize(dev)
+        group.barrier()
+        for _ in range(loops):
+            for name, fn in variants:
+                t0 = time.perf_counter()
+                fn()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        for name, ts in times.items():
+            rec[f"pass_{name}_ms"] = float(np.median(ts))
+        timed("pass_back_to_back_ms", lambda: stats_ring_cuda(slots, x))
+        waits = np.array(times["with_events"]) - np.array(times["unordered"])
+        rec["event_waits_ms_per_pass"] = float(np.median(waits))
+        rec["one_wait_ms"] = rec["event_waits_ms_per_pass"] / (2 * (n - 1))
+
+        # ordering: each round's blocks are integers no other round has;
+        # before its send each rank's stream sleeps (a kernel of its own
+        # that counts clock cycles), and every LATE_EVERY-th round one
+        # rank in turn sleeps for longer than a barrier takes, so that a
+        # sum that did not wait for that rank's send would read its
+        # slot's older block
+        blocks = _int_blocks(rounds, n, k)
+        xs = torch.from_numpy(blocks[:, i].copy()).to(dev)
+
+        def sleep(r):
+            late = r % LATE_EVERY == 0 and (r // LATE_EVERY) % n == i
+            return LATE_SLEEP if late else SLEEP
+
+        def run(count, ordered):
+            sums = []
+            for r in range(count):
+                torch.cuda._sleep(sleep(r))
+                if ordered:
+                    sums.append(stats_ring_cuda(slots, xs[r]))
+                    continue
+                q = slots.passes % PARITIES
+                stats_ring_send(slots, xs[r], q, slots.peer_read[q],
+                                slots.sent[q])
+                group.barrier()
+                sums.append(stats_ring_sum(slots, xs[r], q, (),
+                                           slots.read[q]))
+                slots.passes += 1
+            got = torch.stack(sums).cpu().numpy()
+            want = np.stack([_hop_order(blocks[r], i)
+                             for r in range(count)])
+            return int((got != want).any(axis=1).sum())
+
+        torch.cuda.synchronize(dev)
+        group.barrier()
+        t0 = time.perf_counter()
+        rec["rounds"] = rounds
+        rec["rounds_wrong_with_waits"] = run(rounds, True)
+        rec["ordered_round_ms"] = (time.perf_counter() - t0) * 1e3 / rounds
+        control = min(rounds, 1000)
+        group.barrier()
+        rec["control_rounds"] = control
+        rec["control_rounds_wrong_without_sent_wait"] = run(control, False)
+        close_peer_slots()
+        ranks = group.gather_objects(rec)
+        if world.rank:
+            return 0
+        bad = [f"rank {r['rank']}: {r['rounds_wrong_with_waits']} of "
+               f"{rounds} rounds read a slot before its store"
+               for r in ranks if r["rounds_wrong_with_waits"]]
+        if min(rounds, 1000) >= LATE_EVERY * n and not sum(
+                r["control_rounds_wrong_without_sent_wait"] for r in ranks):
+            bad.append("no sum without its wait read a late send's slot "
+                       "early: the rounds do not test the ordering")
+        print(json.dumps({"phase": "ring_probe", "device": str(dev),
+                          "world": n, "k": k, "loops": loops,
+                          "sleep_cycles": SLEEP,
+                          "late_sleep_cycles": LATE_SLEEP,
+                          "late_every": LATE_EVERY, "ranks": ranks,
+                          "errors": bad}), flush=True)
+        if bad:
+            print("ring_probe: " + "; ".join(bad), file=sys.stderr)
+            return 1
+        return 0
+
+
+# run inside a checkout by ``torch.distributed.run``, every rank on card
+# 0: ms a K5 reduce pass to completion (the passes back to back, one
+# synchronise at the end) and a gloo all_reduce of the same [5] vector;
+# rank 0 prints the ranks' JSON
+_RING_TIME = r"""
+import json, os, sys, time, torch
+sys.path.insert(0, os.getcwd())
+from aws_global_accelerator_controller_tpu_torch.ops.cuda_ring import (
+    close_peer_slots)
+from aws_global_accelerator_controller_tpu_torch.parallel.distributed import (
+    join_world)
+from aws_global_accelerator_controller_tpu_torch.parallel.fleet_plan import (
+    _make_stats_ring)
+from aws_global_accelerator_controller_tpu_torch.parallel.mesh import (
+    make_mesh)
+passes = int(sys.argv[1])
+with join_world("cuda:0") as world:
+    group = make_mesh(world, ("data",)).groups["data"]
+    dev = world.device
+    reduce = _make_stats_ring(group, dev)
+    xs = [torch.full((5,), float(p * group.size + group.index), device=dev)
+          for p in range(passes)]
+    rec = {"rank": group.index}
+    for name, fn in (("pass_ms", reduce),
+                     ("gloo_all_reduce_ms", group.all_reduce)):
+        for x in xs[:10]:
+            fn(x)
+        torch.cuda.synchronize(dev)
+        group.barrier()
+        t0 = time.perf_counter()
+        for x in xs:
+            fn(x)
+        torch.cuda.synchronize(dev)
+        rec[name] = (time.perf_counter() - t0) * 1e3 / passes
+    group.barrier()
+    close_peer_slots()
+    ranks = group.gather_objects(rec)
+    if world.rank == 0:
+        print(json.dumps(ranks), flush=True)
+"""
+
+
+def ring_ab(tree_a: str, tree_b: str, ranks: int = 4,
+            passes: int = 200) -> int:
+    """K5's pass to completion in two checkouts, A B B A twice after a
+    run of each that builds it, ``ranks`` ranks on card 0, each run its
+    own ``torch.distributed.run`` of ``_RING_TIME`` from a temporary
+    directory, in the checkout."""
+    card = _card()
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "ring_time.py"
+        script.write_text(_RING_TIME)
+
+        def one(label, tree):
+            proc = _run([sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc-per-node", str(ranks),
+                         str(script), str(passes)], Path(tree).resolve())
+            if proc.returncode != 0:
+                print(f"ring_ab: tree {label} ({tree}) failed",
+                      proc.stdout[-4000:], proc.stderr[-4000:],
+                      file=sys.stderr)
+                return None
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+
+        counted = _ab_runs(tree_a, tree_b, one, rounds=2, warm=True)
+    if counted is None:
+        return 1
+    mean = _ab_means(counted, lambda ranks_: {
+        key: [r[key] for r in ranks_]
+        for key in ("pass_ms", "gloo_all_reduce_ms")})
+    print(json.dumps({"phase": "ring_ab", "card": card, "world": ranks,
+                      "passes": passes, "tree_a": tree_a, "tree_b": tree_b,
+                      "runs": [{"tree": label, "ranks": r}
+                               for label, r in counted],
+                      "mean": mean,
+                      "b_over_a": mean["B"]["pass_ms"]
+                      / mean["A"]["pass_ms"]}),
+          flush=True)
+    return 0
 
 
 #: near_tie's bounds in csrc/mlp.cu, each scaled by ``ties``
@@ -1673,7 +2065,24 @@ def main(argv=None) -> int:
     p_fleet.add_argument("--ring-only", action="store_true",
                          help="kernel K5 alone against its plain version")
     p_fleet.add_argument("--passes", type=int, default=200)
+    p_probe = sub.add_parser("ring_probe",
+                             help="K5's parts, event ordering and event "
+                                  "waits on the card, under "
+                                  "torch.distributed.run")
+    p_probe.add_argument("--device", default="cuda")
+    p_probe.add_argument("--loops", type=int, default=200)
+    p_probe.add_argument("--rounds", type=int, default=10000)
+    p_rab = sub.add_parser("ring_ab", help="K5's pass to completion in "
+                                           "two checkouts")
+    p_rab.add_argument("tree_a")
+    p_rab.add_argument("tree_b")
+    p_rab.add_argument("--ranks", type=int, default=4)
+    p_rab.add_argument("--passes", type=int, default=200)
     args = ap.parse_args(argv)
+    if args.cmd == "ring_probe":
+        return ring_probe(args.device, args.loops, args.rounds)
+    if args.cmd == "ring_ab":
+        return ring_ab(args.tree_a, args.tree_b, args.ranks, args.passes)
     if args.cmd == "fleet_sharded":
         if args.ring_only:
             return stats_ring_check(args.device, args.passes)

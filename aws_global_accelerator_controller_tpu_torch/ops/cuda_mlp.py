@@ -32,7 +32,7 @@ from typing import Dict
 
 import torch
 
-from ..kernels.build import Kernel, require_cuda
+from ..kernels.build import Kernel, library, require_cuda
 from .cuda_weights import plan_block
 
 Params = Dict[str, torch.Tensor]
@@ -192,6 +192,18 @@ def forward_cuda(params: Params, features: torch.Tensor,
     if out.numel():
         _MLP_PLAN(dev, x, mask.contiguous(), *ps, out, G, E, F, H)
     return out
+
+
+def plan_tensor_core_route(E: int, F: int, H: int) -> bool:
+    """Whether :func:`forward_cuda` plans groups of E rows of F features
+    and H hidden units on the tensor cores; a group too large for their
+    shared memory takes the CUDA cores, with the same values.  The
+    library alone decides (``agac_mlp_plan_tc_route``); this asks it, so
+    it builds the kernels and needs the CUDA toolkit."""
+    fn = library().agac_mlp_plan_tc_route
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return bool(fn(E, F, H))
 
 
 def score_rows_cuda(params: Params, rows: torch.Tensor) -> torch.Tensor:

@@ -20,10 +20,10 @@ path uses.
   and nowhere else (:func:`_to_wire`, :func:`_from_wire`); the bytes
   staged (both ways) are counted (:func:`staged_bytes`).  The compute
   stays on each rank's device.
-- **Peer copies.**  The fleet stats ring (kernel K5, ``ops/cuda_ring.py``)
-  moves its blocks card to card, as stores into memory that the right
-  neighbour exported (its IPC handle, passed by
-  :meth:`Group.gather_objects`), with a host barrier between hops
+- **Peer copies.**  The fleet stats all-reduce (kernel K5,
+  ``ops/cuda_ring.py``) moves its blocks card to card, as stores into
+  memory that every peer exported (its IPC handle, passed by
+  :meth:`Group.gather_objects`), with one host barrier a pass
   (:meth:`Group.barrier`); those bytes are counted apart
   (:func:`peer_bytes`), never as staged.
 """

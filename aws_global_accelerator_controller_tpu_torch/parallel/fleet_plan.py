@@ -97,12 +97,12 @@ def _device_plan_block(score_rows, quantize, params, rows, seg, slot,
 
 
 def _make_stats_ring(group: Group, device: Device = "cuda"):
-    """The cross-shard stats all-reduce over ``group`` as a neighbour ring
-    (the reference's ``_make_stats_ring``): ``reduce(stats [k]) -> [k]``
-    runs n - 1 hops, each adding the block that arrived from the left
-    into the sum, own stats first.  On CUDA tensors it runs kernel K5,
-    whose receive slots are mapped here, collectively over the group; on
-    CPU tensors the plain hops over gloo.  A group of one runs no hop."""
+    """The cross-shard stats all-reduce over ``group`` (the reference's
+    ``_make_stats_ring``): ``reduce(stats [k]) -> [k]``, every rank's sum
+    in the ring's order, own stats first, then the left neighbour's.  On
+    CUDA tensors it runs kernel K5's exchange, whose inboxes and events
+    are mapped here, collectively over the group; on CPU tensors the
+    plain ring's n - 1 hops over gloo.  A group of one reduces nothing."""
     dev = resolve_device(device)
     slots = (peer_slots(group, dev)
              if dev.type == "cuda" and group.size > 1 else None)

@@ -84,9 +84,10 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
     (``kernels/chip_checks.py fleet_sharded``: ``WholeFleetPlanner(world=
     ...)``, 4 shards, the fleet-plan bench leg's 8 cut to the world's 4):
     each rank plans its shard (K3's row entry and K2 once a pass), the
-    stats cross the ranks through the stats ring (K5, 4 launches a
-    pass: 3 hops of peer stores and the closing add, staging nothing
-    through the host), the shards' plans are gathered; every rank's
+    stats cross the ranks through K5's exchange (2 launches a pass: a
+    store into every peer's inbox and the sum, ordered by interprocess
+    events around one host barrier, staging nothing through the host),
+    the shards' plans are gathered; every rank's
     result must equal, bit for bit, the flat pass on the card, and the
     same command on 4 CPU ranks by the card-vs-CPU law of phase 2;
 18. plans phase 3's fleet size (1,000,000 groups, cap 4) the same way
@@ -101,7 +102,11 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
     ring's half blocks); K5 on 4 ranks on the card (``fleet_sharded
     --ring-only``): 200 reduces back to back, each of its own vectors,
     bit for bit against the plain ring on the CPU among the same ranks,
-    and a ring one hop short must be caught; then times the flash kernel
+    and three planted faults (a sum that leaves out a slot, a sum that
+    skips its wait on the senders, a send that skips its wait on the
+    readers) must be caught; and ``chip_checks.py ring_probe``: the
+    parent's pass in parts, the events' waits, and 10,000 rounds in
+    which no sum reads a slot before its store; then times the flash kernel
     against the dense reference attention at short windows (the
     ``FLASH_MIN_WINDOW`` crossover).
 
@@ -208,8 +213,9 @@ SHARDED_PLAN_EQUAL = 0.9
 
 #: the stats ring's launch-count name, and the [5] fleet stats it reduces
 K5, STATS = "stats_ring", 5
-#: K5's back-to-back reduces in its check
-RING_PASSES = 200
+#: K5's back-to-back reduces in its check, and the rounds of its probe's
+#: ordering check
+RING_PASSES, PROBE_ROUNDS = 200, 10000
 
 
 class SmokeError(RuntimeError):
@@ -543,6 +549,7 @@ def _k3(H=128, iters=20, eager_iters=50):
     from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
         forward_cuda,
         forward_reference,
+        plan_tensor_core_route,
     )
 
     G, E = FLEET_GROUPS, FLEET_CAP
@@ -573,6 +580,10 @@ def _k3(H=128, iters=20, eager_iters=50):
                  BF16_FLOP_PER_S))
     rec["library_note"] = ("dense MLP in torch, bf16 cuBLAS GEMMs, then "
                            "softmax + round")
+    # a group of FLEET_CAP rows fits the tensor cores' shared memory
+    check(plan_tensor_core_route(E, F, H),
+          f"fused_mlp_plan: E={E} H={H} left the tensor-core route")
+    rec["k3_plan_route"] = "tensor cores"
     return rec
 
 
@@ -2109,16 +2120,19 @@ def phase_fleet_sharded_resident(device: str, ranks: int = SHARDED_RANKS,
 
 
 def _k5(device: str = "cuda", ranks: int = SHARDED_RANKS,
-        passes: int = RING_PASSES) -> dict:
+        passes: int = RING_PASSES, probe_rounds: int = PROBE_ROUNDS) -> dict:
     """Kernel K5's record: ``chip_checks.py fleet_sharded --ring-only`` on
     ``ranks`` ranks (which fails on a sum that differs from the plain
-    ring's or the hop order's, or a short ring that goes unnoticed).  Its
-    times are rank 0's, per reduce pass of the [5] stats: ``ms`` the
-    ring's (hops, synchronises, host barriers), ``plain_ms`` the plain
-    ring's over gloo on CPU tensors, ``library_ms`` gloo's
+    ring's or the hop order's, or a planted fault that goes unnoticed)
+    and, on the card, ``chip_checks.py ring_probe`` (which fails on a
+    round whose sum read a slot before its store).  Its times are rank
+    0's, per reduce pass of the [5] stats to completion: ``ms`` the
+    exchange's (send, barrier, sum, ordered by events), ``plain_ms`` the
+    plain ring's over gloo on CPU tensors, ``library_ms`` gloo's
     ``all_reduce`` of the card's vector (staged; NCCL refuses two ranks
-    on one card); one hop launch's device and eager ms beside them.  The
-    bound: every rank's [5] read once and its sum written once."""
+    on one card); the send's and the sum's device and eager ms beside
+    them, and the probe's parts.  The bound: every rank's [5] read once
+    and its sum written once."""
     out, ms, _ = run_ranks(ranks, [
         f"{PKG}.kernels.chip_checks", "fleet_sharded", "--ring-only",
         "--device", _rank_device(device), "--passes", str(passes)])
@@ -2135,12 +2149,20 @@ def _k5(device: str = "cuda", ranks: int = SHARDED_RANKS,
     rec.update(
         library="torch.distributed.all_reduce over gloo, staged through "
                 "the host (NCCL: none, it refuses two ranks on one card)",
-        hop_device_ms=r0.get("hop_device_ms"),
-        hop_eager_ms=r0.get("hop_eager_ms"),
+        **{f"{part}_{t}_ms": r0.get(f"{part}_{t}_ms")
+           for part in ("send", "sum") for t in ("device", "eager")},
+        faults_caught=r0.get("faults_caught"),
         launches_per_pass=out["launches_per_pass"], passes=passes,
-        time_is="host barriers, stream synchronises and launches, not "
-                "bytes", wall_ms=ms,
+        time_is="launches, one host barrier and the streams' event "
+                "waits, not bytes", wall_ms=ms,
         pass_ms_by_rank=[r["pass_ms"] for r in out["ranks"]])
+    if device == "cuda":
+        probe, probe_ms, _ = run_ranks(ranks, [
+            f"{PKG}.kernels.chip_checks", "ring_probe", "--device",
+            _rank_device(device), "--rounds", str(probe_rounds)])
+        p0 = probe["ranks"][0]
+        rec["probe"] = {**{k: v for k, v in p0.items() if k != "rank"},
+                        "wall_ms": probe_ms}
     return rec
 
 
@@ -2414,19 +2436,19 @@ def main() -> int:
             ("ring_attention",
              lambda c: phase_ring_attention("cuda", launch_counts=c),
              (K6B_RING,), {K6B_RING: sum(range(1, SHARDED_RANKS + 1))}),
-            # each rank's timed pass: K5 4 times (3 hops, the closing
-            # add), K3's row entry and K2 once (checked rank by rank)
+            # each rank's timed pass: K5 twice (the send and the sum),
+            # K3's row entry and K2 once (checked rank by rank)
             ("fleet_sharded",
              lambda c: phase_fleet_sharded("cuda", launch_counts=c),
              (K5, "plan_weights", "fused_mlp_scores"),
-             {K5: SHARDED_RANKS * SHARDED_RANKS,
+             {K5: SHARDED_RANKS * 2,
               "plan_weights": SHARDED_RANKS,
               "fused_mlp_scores": SHARDED_RANKS, **no_flash}),
             ("fleet_sharded_resident",
              lambda c: phase_fleet_sharded_resident("cuda",
                                                     launch_counts=c),
              (K5, "plan_weights", "fused_mlp_scores"),
-             {K5: SHARDED_RANKS * SHARDED_RANKS,
+             {K5: SHARDED_RANKS * 2,
               "plan_weights": SHARDED_RANKS,
               "fused_mlp_scores": SHARDED_RANKS, **no_flash}))
     for name, fn, expect, exact in path:

@@ -8,6 +8,7 @@ runs only there).
 import chip_smoke
 
 from aws_global_accelerator_controller_tpu_torch.kernels import build
+from aws_global_accelerator_controller_tpu_torch.ops import cuda_ring
 
 
 def test_plan_phase_rehearses_on_cpu():
@@ -170,7 +171,8 @@ def test_fleet_sharded_phase_rehearses_on_cpu():
     out = chip_smoke.phase_fleet_sharded("cpu", groups=256, cap=16)
     assert (out["phase"], out["world"], out["shards"]) == (
         "fleet_sharded", 4, 4)
-    assert out["launches"] == {} and out["launches_per_pass"] == 4
+    assert out["launches"] == {}
+    assert out["launches_per_pass"] == cuda_ring.launches_per_pass(4) == 2
     assert out["max_abs_err_vs_cpu"] == 0
     assert out["staged_bytes_by_rank"] == [0] * 4
     assert out["stats"]["groups"] == 256.0
@@ -192,6 +194,8 @@ def test_stats_ring_record_rehearses_on_cpu():
         "stats_ring", "cuda", "bytes")
     assert rec["source"].endswith("csrc/stats_ring.cu")
     assert rec["replaces"].endswith("parallel/fleet_plan.py:130")
-    assert rec["max_abs_err"] == 0.0 and rec["launches_per_pass"] == 4
-    assert rec["library_ms"] is None and rec["hop_device_ms"] is None
+    assert rec["max_abs_err"] == 0.0
+    assert rec["launches_per_pass"] == cuda_ring.launches_per_pass(4) == 2
+    assert rec["library_ms"] is None and rec["send_device_ms"] is None
+    assert rec["sum_device_ms"] is None and "probe" not in rec
     assert rec["bound_ms"] == 2 * 4 * 5 * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3

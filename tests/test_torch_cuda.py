@@ -68,6 +68,7 @@ from aws_global_accelerator_controller_tpu_torch.ops.cuda_mlp import (
     dense_scores,
     forward_cuda,
     forward_reference,
+    plan_tensor_core_route,
     relu,
     score_rows_cuda,
 )
@@ -378,17 +379,53 @@ def test_fused_mlp_tensor_cores_equal_cuda_cores(cuda, H, bias):
 
 def test_fused_mlp_plan_entry_at_its_largest_group(cuda):
     """At H = 256 the tensor-core plan entry takes a group of up to 2752
-    rows (43 tiles beside the weights and h1's copy in shared memory):
-    there it is K2 on the row entry's scores; one row more is refused
-    with a CUDA error, not computed wrong."""
+    rows (43 tiles beside the weights and h1's copy in shared memory);
+    a group of 2753 takes the CUDA-core route, which gives the same
+    values: at both, K2 on the row entry's scores."""
+    assert plan_tensor_core_route(2752, F, 256)
+    assert not plan_tensor_core_route(2753, F, 256)
     p = TrafficPolicyModel(hidden_dim=256).init_params(
         torch.Generator().manual_seed(5), device=cuda)
     x, m = _k3_inputs(cuda, 3, 2753, 5)
-    w = forward_cuda(p, x[:, :2752], m[:, :2752])
-    s = score_rows_cuda(p, x[:, :2752].reshape(-1, F))
-    assert torch.equal(w, plan_weights_cuda(s.view(3, 2752), m[:, :2752]))
-    with pytest.raises(build.KernelLaunchError):
-        forward_cuda(p, x, m)
+    for E in (2752, 2753):
+        w = forward_cuda(p, x[:, :E], m[:, :E])
+        s = score_rows_cuda(p, x[:, :E].reshape(-1, F))
+        assert torch.equal(w, plan_weights_cuda(s.view(3, E), m[:, :E])), E
+
+
+def _plan_entry_limit(H):
+    """The largest group the plan entry takes on the tensor cores at H,
+    found by bisection of the library's own route (a group of at most
+    one tile always fits; past it the item is the group, so the route
+    holds up to a limit and not beyond)."""
+    lo, hi = 64, 1 << 16
+    assert plan_tensor_core_route(lo, F, H)
+    assert not plan_tensor_core_route(hi, F, H)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if plan_tensor_core_route(mid, F, H) else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
+def test_fused_mlp_plan_entry_past_its_shared_memory(cuda, H, past):
+    """A group at the tensor-core plan entry's limit (whole tiles) and
+    one row past it (the CUDA-core route, as the library says) plans as
+    the plain version does, under ``parity.weights_close``, and as K2
+    on the row entry's scores."""
+    limit = _plan_entry_limit(H)
+    assert limit % 64 == 0
+    E = limit + past
+    assert plan_tensor_core_route(E, F, H) == (not past)
+    p = TrafficPolicyModel(hidden_dim=H).init_params(
+        torch.Generator().manual_seed(H + past), device=cuda)
+    x, m = _k3_inputs(cuda, 2, E, H + past)
+    w = forward_cuda(p, x, m)
+    assert parity.weights_close(w.cpu().numpy(),
+                                forward_reference(p, x, m).cpu().numpy())
+    s = score_rows_cuda(p, x.reshape(-1, F))
+    assert torch.equal(w, plan_weights_cuda(s.view(2, E), m))
 
 
 @pytest.mark.parametrize("H", [128, 256])
@@ -2234,20 +2271,35 @@ def _chip_checks(cuda, ranks, *argv):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("ranks", [2, 3])
+@pytest.mark.parametrize("ranks", [2, 3, 4])
 def test_stats_ring_on_ranks_of_one_card(cuda, ranks):
-    """Kernel K5 on 2 ranks (left and right neighbour the same rank) and 3:
-    every sum bit for bit the plain ring's and the hop order's, n
-    launches a pass, nothing staged, a ring one hop short caught
-    (``chip_checks.py fleet_sharded --ring-only`` exits non-zero on a
-    miss)."""
+    """Kernel K5 on 2 ranks (left and right neighbour the same rank), 3
+    and 4: every sum bit for bit the plain ring's and the hop order's,
+    2 launches a pass, nothing staged, and the three planted faults
+    caught (``chip_checks.py fleet_sharded --ring-only`` exits non-zero
+    on a miss)."""
     out = _chip_checks(cuda, ranks, "fleet_sharded", "--ring-only",
                        "--passes", "50")
     assert out["world"] == ranks and out["errors"] == []
     for r in out["ranks"]:
-        assert r["launches"] == 50 * ranks and r["staged_bytes"] == 0
+        assert r["launches"] == 50 * 2 and r["staged_bytes"] == 0
         assert r["peer_bytes"] == 50 * (ranks - 1) * 5 * 4
-        assert r["equal_to_plain"] and r["skipped_hop_caught"]
+        assert r["equal_to_plain"] and r["equal_to_numpy_hop_order"]
+        assert r["faults_caught"] == {"sum_skips_a_slot": True,
+                                      "sum_skips_its_sent_wait": True,
+                                      "send_skips_its_read_wait": True}
+        assert r["passes_beside_faults_right"]
+
+
+def test_stats_ring_events_order_the_exchange(cuda):
+    """``chip_checks.py ring_probe`` on 3 ranks: no round's sum reads a
+    slot before the peers' stores land, though each send follows a
+    sleep on its stream (the probe exits non-zero on such a round)."""
+    out = _chip_checks(cuda, 3, "ring_probe", "--rounds", "500",
+                       "--loops", "20")
+    assert out["world"] == 3 and out["errors"] == []
+    for r in out["ranks"]:
+        assert r["rounds_wrong_with_waits"] == 0
 
 
 def test_sharded_whole_fleet_on_two_ranks_of_one_card(cuda):

@@ -13,6 +13,11 @@ stats summed by ``psum``), and on the reference rung plans flat.
   the reference's hop order (own tile, then the left neighbour's, then
   the one beyond) of arbitrary tiles, and a ring one hop short fails
   that comparison.
+- Kernel K5's exchange, emulated in numpy: each sender's block stored
+  where ``send_targets`` points (the slot ``inbox_slot`` gives in every
+  peer's inbox) and each inbox summed in slot order (``slot_senders``),
+  as the card's send and sum do, equals the hop order bit for bit on 2,
+  3 and 4 ranks, at both parities.
 - The sharded pass on the fleets of ``tests/test_fleet_plan.py``:
   ``random_group`` fleets (10 seeds, shards 2 and 4), the fleet of
   ``test_sharded_layout_agrees_with_reference`` (shards 4, and its
@@ -47,6 +52,7 @@ from aws_global_accelerator_controller_tpu_torch.device import DeviceError
 from aws_global_accelerator_controller_tpu_torch.models.convert import (
     params_from_jax,
 )
+from aws_global_accelerator_controller_tpu_torch.ops import cuda_ring
 from aws_global_accelerator_controller_tpu_torch.parallel.distributed \
     import Group, World
 from aws_global_accelerator_controller_tpu_torch.parallel.fleet_plan import (
@@ -182,6 +188,63 @@ def test_a_ring_that_skips_a_hop_is_caught(ranks, n):
     for i, r in enumerate(r for r in ranks if n in r["ring_skip"]):
         want = _hop_order_sum(tiles, n, i)
         assert not np.array_equal(r["ring_skip"][n].numpy(), want), (n, i)
+
+
+@pytest.mark.parametrize("n", RING_SIZES)
+def test_inbox_slots_hold_each_sender_once(n):
+    """Slot 0 of an inbox is its own rank's, slot d the sender's at ring
+    distance d; ``slot_senders`` reads the slots back in that order."""
+    for r in range(n):
+        slots = [cuda_ring.inbox_slot(s, r, n) for s in range(n)]
+        assert sorted(slots) == list(range(n)) and slots[r] == 0
+        senders = cuda_ring.slot_senders(r, n)
+        assert senders[0] == r and senders[1] == (r - 1) % n
+        assert [cuda_ring.inbox_slot(s, r, n) for s in senders] == list(
+            range(n))
+
+
+def _exchange(blocks, parity):
+    """Every rank's sum after K5's send and sum, emulated: inboxes as
+    numpy arrays at made-up addresses, each sender's block stored where
+    ``send_targets`` points, each inbox summed over slots 1 .. n - 1 of
+    the parity after its own block, one f32 add a slot."""
+    n, k = blocks.shape
+    slot = cuda_ring.SLOT_FLOATS
+    span = 1 << 20
+    inboxes = np.zeros((n, cuda_ring.PARITIES * n * slot), np.float32)
+    bases = [(j + 1) * span for j in range(n)]
+    for s in range(n):
+        for addr in cuda_ring.send_targets(bases, s, parity):
+            j, off = divmod(addr, span)
+            assert off % 4 == 0 and j - 1 != s
+            inboxes[j - 1, off // 4:off // 4 + k] = blocks[s]
+    sums = []
+    for r in range(n):
+        acc = blocks[r].copy()
+        base = parity * n * slot
+        for d in range(1, n):
+            got = inboxes[r, base + d * slot:base + d * slot + k]
+            assert np.array_equal(got, blocks[cuda_ring.slot_senders(r, n)[d]])
+            acc = (acc + got).astype(np.float32)
+        sums.append(acc)
+    return sums
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("n", RING_SIZES)
+def test_exchange_sums_in_the_reference_hop_order(n, parity):
+    tiles = _ring_tiles()[:n]
+    for row in range(tiles.shape[1]):
+        blocks = tiles[:, row, :5]
+        for i, got in enumerate(_exchange(blocks, parity)):
+            want = _hop_order_sum(blocks, n, i)
+            assert np.array_equal(got.view(np.int32), want.view(np.int32)), (
+                n, parity, row, i)
+
+
+def test_two_launches_a_pass_whatever_the_ranks():
+    assert cuda_ring.launches_per_pass(1) == 0
+    assert all(cuda_ring.launches_per_pass(n) == 2 for n in range(2, 33))
 
 
 def _reference_plans(jax_planner, params, shards, specs):
