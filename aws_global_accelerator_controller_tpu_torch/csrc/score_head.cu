@@ -18,21 +18,27 @@
 //   bf16(ds) and db2 = sum ds, f32; dh = bf16(h > 0 ? ds w2 : 0) (the
 //   product in f32); db1 = sum dh and dw1 = x^T . dh, f32; dx =
 //   bf16(dh . w1^T).
-// K10 and K11's CUDA-core route run their products on mma.sync m16n8k16
-// with bf16 operands and f32 accumulators (flash_common.cuh); the h . w2
-// dot and the sums of dw2 and db1 run in f32 FMA on the accumulator
-// layout, in a fixed order.  K11's tensor-core route (D <= 128, H <= 256,
-// below score_head_bwd_tc_kernel) runs the same chains of k16 steps on
-// wgmma, whose k16 step sums as mma.sync's does, so its dx is the CUDA-core
-// route's bit for bit.
+// Both kernels have two routes, chosen here by D and H alone (tc_route):
+// the CUDA-core route runs the products on mma.sync m16n8k16 with bf16
+// operands and f32 accumulators (flash_common.cuh); the h . w2 dot and
+// the sums of dw2 and db1 run in f32 FMA on the accumulator layout, in a
+// fixed order.  The tensor-core route (D <= 128, H <= 256: both of the
+// main path's shapes; score_head_fwd_tc_kernel and
+// score_head_bwd_tc_kernel below) runs the same chains of k16 steps on
+// wgmma, whose k16 step sums as mma.sync's does, and folds h . w2 and
+// forms dh in the same per-lane order, so its scores and dx are the
+// CUDA-core route's bit for bit.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): K10 moves 2 N D + 4 N
 // bytes (x in, scores out) and does 2 N D H (+ 2 N H) flops; K11 moves
 // 4 N D + 4 N bytes (x and ds in, dx out) and does 6 N D H flops (h
 // again, dw1, dx).  At N = 524,288, D = 32, H = 128 (the train command's
 // defaults) that is 35.7 MB and 69 MB, bound by bytes at 10.6 and 20.7
-// us; at N = 262,144, D = 128, H = 256 K10 is bound by bytes (68 MB,
-// 20.3 us) and K11 by operations (51.5 GFLOP, 52 us).
+// us (K10's 4.4 GFLOP take 4.4 us); at N = 262,144, D = 128, H = 256 K10
+// is bound by bytes (68 MB, 20.3 us) with its 17.3 GFLOP close behind
+// (17.5 us at the peak, which m64n64k16 products with both operands in
+// shared memory reach only if shared memory feeds them at its full 128
+// bytes a clock), and K11 by operations (51.5 GFLOP, 52 us).
 //
 // Design.  The TPU kernels walk a sequential grid of row blocks with the
 // padded weights and (backward) the weight-gradient accumulators resident
@@ -41,8 +47,14 @@
 // columns (kDPad = 16, 32, 64 or 128; wider heads loop over 128-column
 // chunks), so any D and H run; x and w1 chunks stage through shared
 // memory with the flash kernels' tile loader.
-// - K10: one CTA a row tile; for each hidden chunk, the [64, kHN] h tile
-//   is built in registers and folded into the running h . w2 of its rows.
+// - K10's CUDA-core route (every width off the tensor-core route): one
+//   CTA a row tile; for each hidden chunk, the [64, kHN] h tile is built
+//   in registers and folded into the running h . w2 of its rows.  Its
+//   tensor-core route (below score_head_fwd_tc_kernel): a persistent CTA
+//   an SM holding w1, b1 and w2 once in shared memory, a producer warp
+//   streaming x by TMA into a ring of stages, four consumer warpgroups
+//   each running h by wgmma with the next chunk's product under this
+//   chunk's epilogue.
 // - K11's CUDA-core route (every width off the tensor-core route): a
 //   persistent grid (as many CTAs as the card holds at once, at
 //   most 4 an SM), CTA c owning a contiguous run of row tiles, w1 whole
@@ -476,11 +488,13 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials,
 }
 
 // ---------------------------------------------------------------------------
-// K11 on the tensor cores: the route for D <= 128 (the wrapper's D, a
+// The tensor-core route of both kernels: D <= 128 (the wrapper's D, a
 // multiple of 8) and H <= 256, which holds both of the main path's shapes.
-// Every other width keeps score_head_bwd_kernel above.  The route is
-// chosen here by D and H alone (bwd_tc_route; the wrapper asks the
-// library, agac_score_head_bwd_tc_route, and keeps no copy).
+// Every other width keeps score_head_fwd_kernel and score_head_bwd_kernel
+// above.  The route is chosen here by D and H alone (tc_route; the
+// wrapper asks the library, agac_score_head_tc_route, and keeps no copy).
+//
+// K11 on the tensor cores:
 //
 // - Persistent CTAs of one warpgroup, as many as the card holds at once
 //   (two an SM at both main-path shapes), CTA c taking row tiles c, c +
@@ -525,15 +539,20 @@ constexpr int kTcMaxSmem = 227 * 1024;   // the H100's per-CTA limit
 constexpr int kTcMaxH = 256;       // the route's widest hidden layer
 constexpr int kDhBytes = kBlock * 128;   // a dh chunk: 64 rows x 64 units
 
-__host__ __device__ inline bool bwd_tc_route(int D, int H) {
+__host__ __device__ inline bool tc_route(int D, int H) {
   return D <= kMaxDPad && H <= kTcMaxH;
 }
+
+// a box of w1 in shared memory: 64 units x kDPad rows of d, 128 bytes a
+// row
+template <int kDPad>
+constexpr int kW1BoxBytes = kDPad * 128;
 
 template <int kDPad>
 struct TcBwd {
   using L = SwizzledTile<kDPad>;   // an x tile as TMA writes it
   static constexpr int kSweepChunks = kDPad <= 32 ? 2 : 1;
-  static constexpr int kW1Box = kDPad * 128;    // 64 units x kDPad rows
+  static constexpr int kW1Box = kW1BoxBytes<kDPad>;
   static constexpr int kDTiles = kDPad / 8;     // n-tiles of dx, dw1^T
   static constexpr int kDxN = kDPad < 64 ? kDPad : 64;   // dx's groups
 };
@@ -573,39 +592,55 @@ __device__ __forceinline__ float hi_bf(uint32_t v) {
 
 // w1 [D, H] into chunks of 64 units x kDPad rows (128 bytes a row, the
 // 16-byte chunk j of row d at j ^ (d % 8)), zero past D and H; b1 as bf16
-// pairs and w2 as f32 pairs, zero past H.
-template <int kDPad>
+// pairs and w2 as f32 pairs, zero past H; by the first kCta threads of
+// the CTA, each with kBatch loads in flight before its stores.
+template <int kDPad, int kCta = kThreads>
 __device__ __forceinline__ void copy_weights(
     uint8_t* w1s, __nv_bfloat162* b1s, float2* w2s,
     const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
     const __nv_bfloat16* __restrict__ w2, int D, int H, int chunks) {
+  constexpr int kBatch = 8;
   const unsigned short* src = reinterpret_cast<const unsigned short*>(w1);
   const bool vec = H % 8 == 0 && (reinterpret_cast<uintptr_t>(w1) & 15) == 0;
   const int per_row = chunks * 8;   // 16-byte chunks a row of d
-  for (int i = threadIdx.x; i < kDPad * per_row; i += kThreads) {
-    const int d = i / per_row;
-    const int j = i - d * per_row;   // columns [8 j, 8 j + 8)
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (d < D && 8 * j < H) {
-      const long long at = static_cast<long long>(d) * H + 8 * j;
-      if (vec) {
-        v = *reinterpret_cast<const uint4*>(src + at);
-      } else {
-        uint32_t w[4];
+  const int n = kDPad * per_row;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kCta) {
+    uint4 v[kBatch];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t lo = 8 * j + 2 * e < H ? src[at + 2 * e] : 0u;
-          const uint32_t hi = 8 * j + 2 * e + 1 < H ? src[at + 2 * e + 1] : 0u;
-          w[e] = lo | (hi << 16);
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * kCta;
+      const int d = i / per_row;
+      const int j = i - d * per_row;   // columns [8 j, 8 j + 8)
+      v[b] = make_uint4(0, 0, 0, 0);
+      if (i < n && d < D && 8 * j < H) {
+        const long long at = static_cast<long long>(d) * H + 8 * j;
+        if (vec) {
+          v[b] = *reinterpret_cast<const uint4*>(src + at);
+        } else {
+          uint32_t w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t lo = 8 * j + 2 * e < H ? src[at + 2 * e] : 0u;
+            const uint32_t hi =
+                8 * j + 2 * e + 1 < H ? src[at + 2 * e + 1] : 0u;
+            w[e] = lo | (hi << 16);
+          }
+          v[b] = make_uint4(w[0], w[1], w[2], w[3]);
         }
-        v = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
-    *reinterpret_cast<uint4*>(w1s + (j / 8) * TcBwd<kDPad>::kW1Box +
-                              d * 128 + (((j % 8) ^ (d % 8)) << 4)) = v;
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * kCta;
+      const int d = i / per_row;
+      const int j = i - d * per_row;
+      if (i < n)
+        *reinterpret_cast<uint4*>(w1s + (j / 8) * kW1BoxBytes<kDPad> +
+                                  d * 128 + (((j % 8) ^ (d % 8)) << 4)) = v[b];
+    }
   }
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int p = threadIdx.x; p < chunks * kHN / 2; p += kThreads) {
+  for (int p = threadIdx.x; p < chunks * kHN / 2; p += kCta) {
     const int j = 2 * p;
     b1s[p] = __halves2bfloat162(j < H ? b1[j] : zero,
                                 j + 1 < H ? b1[j + 1] : zero);
@@ -884,14 +919,257 @@ __global__ void __launch_bounds__(kThreads, 2) score_head_bwd_tc_kernel(
   }
 }
 
-// The tensor-core route's grid: as many CTAs as fit on the card at once,
-// fewer when there are fewer row tiles.  A negative value is a CUDA error.
+// ---------------------------------------------------------------------------
+// K10 on the tensor cores (tc_route's widths):
+//
+// - Persistent CTAs, one an SM, of kConsumers = 4 warpgroups and one
+//   producer warp, CTA c taking row tiles c, c + grid, ..., its consumer
+//   warpgroup k every fourth of them from the k-th.  The consumers copy
+//   w1, b1 and w2 once into shared memory with K11's copy_weights (w1 in
+//   its 128-byte-swizzled boxes of 64 units, the MN-major B of h =
+//   x . w1), one copy for the CTA.  Four consumers, not two, because a
+//   warpgroup's chain of k16 products runs serially on the tensor cores:
+//   on the H100 two took K10 at D = 128, H = 256 to 0.0605 ms, three to
+//   0.0550 and four to 0.0517 (kernels/chip_checks.py head); at D = 32
+//   two CTAs of two an SM ran as fast as one of four.
+// - The producer warp streams the CTA's x tiles by TMA (a map over
+//   [N, D], zero past N and D) into a ring of kStages stages, each with a
+//   full mbarrier (the copy landed) and an empty one (the consuming
+//   warpgroup's four warps have seen the last product that reads it
+//   complete), so up to kStages tiles (128 KB) are in flight a CTA while
+//   the consumers compute.
+// - A consumer runs its (tile, hidden chunk) items in order through two
+//   accumulators: item i + 1's h = wgmma m64n64k16 over D in ascending
+//   k16 steps from a zeroed accumulator (the CUDA-core route's
+//   hidden_chunk chain, which
+//   tests/test_torch_cuda.py::test_score_head_wgmma_forms_sum_as_mma_sync
+//   holds to mma.sync bit for bit) is issued before item i's epilogue,
+//   so the tensor cores run under it.  An accumulator is written only
+//   before its product's issue and read only after its wait, and every
+//   path through the loop issues and waits alike: ptxas serialises every
+//   wgmma of a kernel (its note C7518) once a branch decides how many
+//   products are in flight.
+// - The epilogue folds h . w2 into the same two f32 shares a lane as the
+//   CUDA-core route, in the same order (fold_chunk), with b1 and w2 read
+//   from shared memory; then the same shuffles and roundings, so the
+//   scores are the CUDA-core route's bit for bit.
+// - One launch a call, no partials, no atomics.
 template <int kDPad>
-int bwd_tc_grid(int N, int H) {
-  auto kernel = score_head_bwd_tc_kernel<kDPad>;
-  const int bytes = bwd_tc_smem_bytes<kDPad>(H);
-  static unsigned allowed = 0;
-  int err = allow_smem(kernel, kTcMaxSmem, &allowed, true);
+struct TcFwd {
+  using L = SwizzledTile<kDPad>;   // an x tile as TMA writes it
+  static constexpr int kKSteps = kDPad / 16;   // k16 steps of h over D
+  static constexpr int kConsumers = 4;         // warpgroups a CTA
+  static constexpr int kCtaThreads = kConsumers * kThreads + 32;
+  // the x ring, 128 KB beside w1's 64 KB at most: a power of two of
+  // stages, 8 at kDPad = 128
+  static constexpr int kStages = 128 * 1024 / L::kBytes;
+};
+
+// x stages, w1's boxes, b1 and w2, and the full and empty barriers.
+template <int kDPad>
+__host__ __device__ inline int fwd_tc_smem_bytes(int H) {
+  using S = TcFwd<kDPad>;
+  const int chunks = hidden_chunks(H);
+  return S::kStages * S::L::kBytes + chunks * kW1BoxBytes<kDPad> +
+         chunks * kHN * (2 + 4) + 16 * S::kStages;
+}
+
+// part[r] += h . w2 over the units [64 c, 64 c + 64) of hidden chunk c
+// for this lane's rows lr + 8 r, n-tiles in ascending order, the lower
+// column of a pair first: the CUDA-core route's order.  With kTail (the
+// chunk holds units past H) those units are skipped, as there (a
+// zero-padded unit would add +0, but NaN where x holds an infinity).
+template <bool kTail>
+__device__ __forceinline__ void fold_units(float (&part)[2],
+                                           const float (&h)[8][4],
+                                           const __nv_bfloat162* b1s,
+                                           const float2* w2s, int c, int H) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int pair = c * (kHN / 2) + 4 * nt + tq;
+    const __nv_bfloat162 bias = b1s[pair];
+    const float2 wv = w2s[pair];
+    const int j = 2 * pair;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t v = hidden_pair(h[nt][2 * r], h[nt][2 * r + 1], bias);
+      if (!kTail || j < H) part[r] = fmaf(lo_bf(v), wv.x, part[r]);
+      if (!kTail || j + 1 < H) part[r] = fmaf(hi_bf(v), wv.y, part[r]);
+    }
+  }
+}
+
+__device__ __forceinline__ void fold_chunk(float (&part)[2],
+                                           const float (&h)[8][4],
+                                           const __nv_bfloat162* b1s,
+                                           const float2* w2s, int c, int H) {
+  if ((c + 1) * kHN <= H)
+    fold_units<false>(part, h, b1s, w2s, c, H);
+  else
+    fold_units<true>(part, h, b1s, w2s, c, H);
+}
+
+template <int kDPad>
+__global__ void __launch_bounds__(TcFwd<kDPad>::kCtaThreads, 1)
+    score_head_fwd_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                             const __nv_bfloat16* __restrict__ w1,
+                             const __nv_bfloat16* __restrict__ b1,
+                             const __nv_bfloat16* __restrict__ w2,
+                             const __nv_bfloat16* __restrict__ b2,
+                             float* __restrict__ out, int N, int D, int H) {
+  using S = TcFwd<kDPad>;
+  using L = typename S::L;
+  constexpr int kStages = S::kStages;
+  constexpr int kC = S::kConsumers;
+  // the tiles must start on 1024 bytes, the span of a 128-byte swizzle's
+  // atom: the dynamic shared memory of a kernel with no static shared
+  // memory does (as in flash_attention.cu), and a launch where it did not
+  // would trap here.  Declared __shared__, so b1 and w2 are read by
+  // shared-memory loads.
+  extern __shared__ __align__(1024) uint8_t fwd_smem[];
+  if (smem_u32(fwd_smem) % 1024) __trap();
+  uint8_t* xs = fwd_smem;
+  uint8_t* w1s = xs + kStages * L::kBytes;
+  const int chunks = hidden_chunks(H);
+  __nv_bfloat162* b1s =
+      reinterpret_cast<__nv_bfloat162*>(w1s + chunks * kW1BoxBytes<kDPad>);
+  float2* w2s = reinterpret_cast<float2*>(b1s + chunks * kHN / 2);
+  uint64_t* full = reinterpret_cast<uint64_t*>(w2s + chunks * kHN / 2);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n_tiles = (N + kBlock - 1) / kBlock;
+  const int my_tiles =
+      (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  auto row_of = [&](int t) {
+    return (blockIdx.x + t * gridDim.x) * kBlock;
+  };
+
+  const bool producer = warp == kC * kWarps;
+  if (producer) {
+    // the first tiles' loads run under the weights' copy
+    if (lane == 0) {
+      for (int i = 0; i < kStages; ++i) {
+        mbar_init(full + i, 1);
+        mbar_init(empty + i, kWarps);
+      }
+      mbar_init_fence();
+      for (int t = 0; t < kStages && t < my_tiles; ++t)
+        tma_tile<kDPad>(xs + t * L::kBytes, &x_map, 0, row_of(t), full + t);
+    }
+  } else {
+    copy_weights<kDPad, kC * kThreads>(w1s, b1s, w2s, w1, b1, w2, D, H,
+                                       chunks);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  if (producer) {
+    // each later tile into the stage of the tile kStages before it, once
+    // that tile's warpgroup has released it
+    if (lane == 0)
+      for (int t = kStages; t < my_tiles; ++t) {
+        const int stage = t % kStages;
+        mbar_wait(empty + stage, (t / kStages - 1) & 1);
+        tma_tile<kDPad>(xs + stage * L::kBytes, &x_map, 0, row_of(t),
+                        full + stage);
+      }
+    return;
+  }
+
+  // An item: local tile t (this warpgroup's are wg, wg + kC, ...) and
+  // hidden chunk c, in order.
+  struct Item {
+    int t, c;
+  };
+  const int wg = warp / kWarps;
+  auto next = [&](Item it) {
+    return it.c + 1 == chunks ? Item{it.t + kC, 0} : Item{it.t, it.c + 1};
+  };
+  const int tq = lane % 4;
+  const int lr = warp % kWarps * 16 + lane / 4;   // rows lr, lr + 8
+  const uint64_t w1d = gmma_desc<128>(w1s);
+  const uint64_t x0d = gmma_desc<L::kSwz>(xs);    // stage 0
+  const uint64_t spare = gmma_desc<L::kSwz>(w1s);
+  const float b2v = bf(b2[0]);
+  float part[2] = {0.f, 0.f};
+
+  // h of item it = x tile . w1[:, 64 c : 64 c + 64], issued, not awaited.
+  // Past the CTA's last tile a product of w1's first box by itself, never
+  // read (so the loop below issues and waits alike on every path, and no
+  // product runs serialised).
+  auto issue = [&](float (&h)[8][4], Item it) {
+    const bool real = it.t < my_tiles;
+    const int stage = it.t % kStages;
+    if (real && it.c == 0) mbar_wait(full + stage, (it.t / kStages) & 1);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
+    fence_acc(h);
+    wgmma_fence();
+    const uint64_t xd = real ? x0d + stage * (L::kBytes >> 4) : spare;
+    const int c = real ? it.c : 0;
+#pragma unroll
+    for (int kk = 0; kk < S::kKSteps; ++kk)
+      wgmma_ss<64, false, true, 0>(
+          h, xd + (L::k_step(kk) >> 4),
+          w1d + ((c * kW1BoxBytes<kDPad> + kk * 16 * 128) >> 4));
+    wgmma_commit();
+  };
+
+  // item it's epilogue, once its product has completed
+  auto finish = [&](float (&h)[8][4], Item it) {
+    fence_acc(h);
+    const int c = it.c;
+    const bool last = c == chunks - 1;
+    // no product reads the tile's stage any more: hand it back
+    if (last && lane == 0) mbar_arrive(empty + it.t % kStages);
+    fold_chunk(part, h, b1s, w2s, c, H);
+    if (last) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float p = part[r];
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        const int row = row_of(it.t) + lr + 8 * r;
+        if (tq == 0 && row < N) out[row] = bf16_round(bf16_round(p) + b2v);
+        part[r] = 0.f;
+      }
+    }
+  };
+
+  // one product in flight across each epilogue: the next item's (or a
+  // spare one) runs while this item folds
+  float ha[8][4], hb[8][4];
+  Item at{wg, 0};     // the next item to fold
+  Item ahead = at;    // the next item to issue
+  issue(ha, ahead);
+  ahead = next(ahead);
+  while (at.t < my_tiles) {
+    issue(hb, ahead);
+    ahead = next(ahead);
+    wgmma_wait<1>();
+    finish(ha, at);
+    at = next(at);
+    issue(ha, ahead);
+    ahead = next(ahead);
+    wgmma_wait<1>();
+    if (at.t < my_tiles) {
+      finish(hb, at);
+      at = next(at);
+    }
+  }
+  wgmma_wait<0>();
+}
+
+// A persistent grid: as many CTAs of `kernel` (`bytes` of shared memory
+// each) as fit on the card at once, fewer when N rows make fewer tiles.
+// A negative value is a CUDA error.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, int bytes, unsigned* allowed,
+                    int N) {
+  int err = allow_smem(kernel, kTcMaxSmem, allowed, true);
   if (err) return -err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -899,11 +1177,39 @@ int bwd_tc_grid(int N, int H) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, bytes);
+                                                      threads, bytes);
   if (e != cudaSuccess) return -static_cast<int>(e);
   if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
   const int n_tiles = std::max(1, (N + kBlock - 1) / kBlock);
   return std::min(n_tiles, sms * per_sm);
+}
+
+template <int kDPad>
+int bwd_tc_grid(int N, int H) {
+  static unsigned allowed = 0;
+  return persistent_grid(score_head_bwd_tc_kernel<kDPad>, kThreads,
+                         bwd_tc_smem_bytes<kDPad>(H), &allowed, N);
+}
+
+template <int kDPad>
+int launch_fwd_tc(const void* x, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* out, int N, int D,
+                  int H, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kCtaThreads = TcFwd<kDPad>::kCtaThreads;
+  static unsigned allowed = 0;
+  const int bytes = fwd_tc_smem_bytes<kDPad>(H);
+  const int grid = persistent_grid(score_head_fwd_tc_kernel<kDPad>,
+                                   kCtaThreads, bytes, &allowed, N);
+  if (grid < 0) return -grid;
+  CUtensorMap x_map;
+  const int err = encode_head_tiles<kDPad>(&x_map, x, N, 1, D);
+  if (err) return err;
+  score_head_fwd_tc_kernel<kDPad><<<grid, kCtaThreads, bytes, stream>>>(
+      x_map, static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
+      static_cast<float*>(out), N, D, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int kDPad>
@@ -1004,6 +1310,15 @@ extern "C" int agac_score_head_fwd(const void* x, const void* w1,
                                    const void* b2, void* out, int N, int D,
                                    int H, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc_route(D, H)) {
+    if (D <= 16)
+      return launch_fwd_tc<16>(x, w1, b1, w2, b2, out, N, D, H, st);
+    if (D <= 32)
+      return launch_fwd_tc<32>(x, w1, b1, w2, b2, out, N, D, H, st);
+    if (D <= 64)
+      return launch_fwd_tc<64>(x, w1, b1, w2, b2, out, N, D, H, st);
+    return launch_fwd_tc<128>(x, w1, b1, w2, b2, out, N, D, H, st);
+  }
   if (D <= 16) return launch_fwd<16>(x, w1, b1, w2, b2, out, N, D, H, st);
   if (D <= 32) return launch_fwd<32>(x, w1, b1, w2, b2, out, N, D, H, st);
   if (D <= 64) return launch_fwd<64>(x, w1, b1, w2, b2, out, N, D, H, st);
@@ -1016,7 +1331,7 @@ extern "C" int agac_score_head_fwd(const void* x, const void* w1,
 // for N rows of width D (a multiple of 8) and H hidden units; negative:
 // a CUDA error.
 extern "C" int agac_score_head_bwd_ctas(int N, int D, int H) {
-  if (bwd_tc_route(D, H)) {
+  if (tc_route(D, H)) {
     if (D <= 16) return bwd_tc_grid<16>(N, H);
     if (D <= 32) return bwd_tc_grid<32>(N, H);
     if (D <= 64) return bwd_tc_grid<64>(N, H);
@@ -1039,7 +1354,7 @@ extern "C" int agac_score_head_bwd(const void* x, const void* ds,
                                    void* sums, int N, int D, int H, int ctas,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bwd_tc_route(D, H)) {
+  if (tc_route(D, H)) {
     if (D <= 16)
       return launch_bwd_tc<16>(x, ds, w1, b1, w2, dx, partials, sums, N, D,
                                H, ctas, st);
@@ -1068,8 +1383,9 @@ extern "C" int agac_score_head_bwd(const void* x, const void* ds,
                                     D, H, ctas, st);
 }
 
-// 1 where agac_score_head_bwd takes its tensor-core route for rows of
-// width D (a multiple of 8) and H hidden units, else 0.
-extern "C" int agac_score_head_bwd_tc_route(int D, int H) {
-  return bwd_tc_route(D, H) ? 1 : 0;
+// 1 where agac_score_head_fwd and agac_score_head_bwd take their
+// tensor-core route for rows of width D (a multiple of 8) and H hidden
+// units, else 0.
+extern "C" int agac_score_head_tc_route(int D, int H) {
+  return tc_route(D, H) ? 1 : 0;
 }

@@ -6,7 +6,9 @@ of it, 16384 x 16 and 1,000,000 x 4; also on inputs that miss the L2, by
 this checkout's ``chip_smoke.time_cold`` in both trees), of K3 (both
 entries, H = 128 and 256),
 of K10 and K11 (the train command's default shape and the reference's
-own head shape), of K6a, K6b, K7 and K8 apart (``chip_smoke.py``'s three
+own head shape; also eager, a call from Python), of the fused train
+step that launches them (``chip_smoke.py``'s ``temporal_fused_train``,
+ms a step on the host clock), of K6a, K6b, K7 and K8 apart (``chip_smoke.py``'s three
 shapes of them: T = 64, S = 8192, D = 32; T = 2048, S = 128, D = 128;
 T = 1024, S = 64, D = 160), of K6b-ring (``chip_smoke.py``'s seven
 shapes of it) and of K9 (32 heads at T = 64, 1024 and 1536
@@ -33,9 +35,9 @@ wide scores and zeros of both signs in a few rows) and on rows of k
 equal valid scores; and of K3's weights and row scores on its two
 routes: the tensor-core route at H = 128 and 256 (the timed inputs),
 the CUDA-core route at H = 129 and 512 (2048 x 16 groups); of K10's
-scores and K11's dx at the two timed shapes and of K11's dx over the
-card tests' sweep (D in 8, 20, 96, 128, 160, H in 16, 128, 200, 256,
-512, 703 rows: both of K11's routes), beside each weight gradient's
+scores and K11's dx at the two timed shapes and over the card tests'
+sweep (D in 8, 20, 96, 128, 160, H in 16, 128, 200, 256, 512, 703
+rows: both routes of each), beside each weight gradient's
 ``weight_grad_error`` against its plain version at the timed shapes
 (their digests may differ: the parent's order of sums follows its
 grid).  First it runs the card tests ``test_wgmma_sums_as_mma_sync``,
@@ -56,7 +58,8 @@ ulps) of B's first run from A's, and where K6b-ring's differ, of its o,
 m and l in f32 ulps (over the first 256 heads of a point).  This is how
 two versions of a kernel are compared.
 
-``faults``: plants faults in K11's weight-gradient sums, in K9's sums,
+``faults``: plants faults in K10's and K11's tensor-core routes, in
+K11's weight-gradient sums, in K9's sums,
 in K7's and K8's pipeline, in the forward K6a/K6b, in K6b-ring, in
 K2's quad route and in K3's tensor-core route, each
 in a copy of this checkout made in a temporary directory,
@@ -72,6 +75,12 @@ changes the result:
   formed without the relu gate; and in the partials' sum, which both
   routes launch, ``half_partials``, it sums every other CTA's partial,
   and ``zero_weight_grads``, the weight gradients come out zero;
+- K10 (the card tests over many row tiles and of its tensor-core route
+  against the parent's build, bit for bit; ``chip_smoke.py`` at the same
+  two shapes, both on the route): ``fwd_tc_drops_last_k16_step``, h
+  sums one k16 step of D fewer; ``fwd_tc_skips_last_hidden_chunk``, the
+  scores miss the last hidden chunk's h . w2; ``fwd_tc_fold_without_relu``,
+  h . w2 folds h without its relu;
 - K9 (the card tests of the fused backward, T up to 200, and T = 1024
   and 2048 where the dq chains are longest; ``chip_smoke.py`` at
   T = 2048 and T = 1024, which have several K blocks, and at T = 64
@@ -151,10 +160,10 @@ and stores (``LDG.E.128``, ``STG.E.128``), and for K6b-ring's
 source the CTAs an SM its launches take at each width class; exits 1 on
 a warning or on a spill in a wgmma kernel.
 
-``head TREE ...``: ``torch.profiler`` over 10 calls of K11's wrapper at
-its two timed shapes in each checkout: device ms a call of each kernel
-it launches (the route's kernel, the partials' sum, the copies around
-them).
+``head TREE ...``: ``torch.profiler`` over 10 calls of K10's and of
+K11's wrapper at their two timed shapes in each checkout: device ms a
+call of each kernel they launch (the route's kernel, K11's partials'
+sum, the copies around them).
 
 ``profile``: ``torch.profiler`` over ``--steps`` (3) sequence-supervised
 train steps of the temporal model, by default at the train command's
@@ -353,8 +362,8 @@ for E in (*range(1, 41), 300):
     s = (torch.randn(G, 1, device="cuda", generator=g) * 5).expand(G, E)
     digests[f"k2 equal E={E}"] = digest(plan_weights_cuda(s, m))
 # K10 and K11: times, digests of K10's scores and K11's dx at the two
-# timed shapes and of K11's dx over the card tests' sweep (703 rows, both
-# of K11's routes), and each weight gradient's error against its plain
+# timed shapes and over the card tests' sweep (703 rows, both routes of
+# each), and each weight gradient's error against its plain
 # version over its limit (the weight gradients' digests may differ: the
 # parent's own order of sums depends on its grid)
 weight_errors = {}
@@ -364,6 +373,10 @@ for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
     out["score_head_fwd " + shape] = cs.time_device(
         lambda: ch.score_head_forward(x, w1, b1, w2, b2))
     out["score_head_bwd " + shape] = cs.time_device(
+        lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))
+    out["score_head_fwd eager " + shape] = cs.time_eager(
+        lambda: ch.score_head_forward(x, w1, b1, w2, b2))
+    out["score_head_bwd eager " + shape] = cs.time_eager(
         lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))
     grads = ch.score_head_bwd(x, w1, b1, w2, b2, ds)
     digests["head fwd " + shape] = digest(
@@ -375,9 +388,15 @@ for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
         name: ch.weight_grad_error(g, w, lim) for name, g, w, lim in zip(
             ("dw1", "db1", "dw2", "db2"), grads[1:], want[1:], limits)}
     del x, grads, want, limits
+# the fused train step that launches them (chip_smoke.py's phase, host
+# clock, one step checked on the CPU)
+out["temporal_fused_train ms a step"] = cs.phase_temporal_fused_train(
+    "cuda", check_steps=1)["fused_head_ms_per_step"]
 for D in (8, 20, 96, 128, 160):
     for H in (16, 128, 200, 256, 512):
         x, w1, b1, w2, b2, ds = cs._head_inputs(19, 37, D, H, D + H)
+        digests[f"head fwd sweep D={D} H={H}"] = digest(
+            ch.score_head_forward(x, w1, b1, w2, b2))
         digests[f"head dx sweep D={D} H={H}"] = digest(
             ch.score_head_bwd(x, w1, b1, w2, b2, ds)[0])
 for T, S, D in ((64, 8192, 32), (2048, 128, 128), (1024, 64, 160)):
@@ -538,6 +557,22 @@ FAULTS = {
         "for (int c = 0; c < ctas; ++c) s += partials[c * n + e];",
         "for (int c = 0; c < ctas; c += 2) s += partials[c * n + e];"),
     "zero_weight_grads": (_HEAD_SRC, "  out[e] = s;", "  out[e] = 0.f;"),
+    "fwd_tc_drops_last_k16_step": (
+        _HEAD_SRC,
+        "    for (int kk = 0; kk < S::kKSteps; ++kk)",
+        "    for (int kk = 0; kk < S::kKSteps - 1; ++kk)"),
+    "fwd_tc_skips_last_hidden_chunk": (
+        _HEAD_SRC,
+        "    fold_chunk(part, h, b1s, w2s, c, H);",
+        "    if (!last) fold_chunk(part, h, b1s, w2s, c, H);"),
+    "fwd_tc_fold_without_relu": (
+        _HEAD_SRC,
+        "      const uint32_t v = hidden_pair(h[nt][2 * r], h[nt][2 * r + 1], "
+        "bias);",
+        "      const __nv_bfloat162 pre = __hadd2(\n"
+        "          __floats2bfloat162_rn(h[nt][2 * r], h[nt][2 * r + 1]), "
+        "bias);\n"
+        "      const uint32_t v = *reinterpret_cast<const uint32_t*>(&pre);"),
     "dq_skips_k_block_0": (
         _DQKV_SRC,
         "        mma_kn(acc[nt], dsa[kk], ks, kStride, nt * 8, kk);",
@@ -650,7 +685,9 @@ FAULTS = {
 #: source -> (card tests (-k), chip_smoke function, its shapes, how many
 #: of them each fault must fail)
 CHECKS = {
-    _HEAD_SRC: ("over_many_row_tiles", "_head_rows_one",
+    _HEAD_SRC: ("over_many_row_tiles or "
+                "forward_tensor_cores_keep_the_parents_scores",
+                "_head_rows_one",
                 ((64, 8192, 32, 128, 13), (2048, 128, 128, 256, 14)), 2),
     _DQKV_SRC: ("fused_backward_kernel", "_k9_one",
                 ((64, 32, 32, 15), (2048, 32, 128, 16),
@@ -797,6 +834,7 @@ def ab(tree_a: str, tree_b: str) -> int:
                                           and "H=3 " not in k
                                           and not k.startswith(
                                               ("k2 sweep", "k2 equal",
+                                               "head fwd sweep",
                                                "head dx sweep"))}}),
                   flush=True)
             return res
@@ -908,9 +946,9 @@ def faults(names=None) -> int:
     return 1 if unnoticed else 0
 
 
-# run inside a checkout: the device ms a call of each kernel K11's wrapper
-# launches (the head's kernels and the copies around them), by
-# torch.profiler over 10 calls at the two timed shapes
+# run inside a checkout: the device ms a call of each kernel K10's and
+# K11's wrappers launch (the head's kernels and the copies around them),
+# by torch.profiler over 10 calls of each at the two timed shapes
 _HEAD_SPLIT = r"""
 import json, torch
 from torch.profiler import ProfilerActivity, profile
@@ -921,27 +959,30 @@ build.library()
 out = {}
 for T, S, D, H in ((64, 8192, 32, 128), (2048, 128, 128, 256)):
     x, w1, b1, w2, b2, ds = cs._head_inputs(T, S, D, H, 13)
-    for _ in range(3):
-        ch.score_head_bwd(x, w1, b1, w2, b2, ds)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            ch.score_head_bwd(x, w1, b1, w2, b2, ds)
+    for name, call in (
+            ("fwd", lambda: ch.score_head_forward(x, w1, b1, w2, b2)),
+            ("bwd", lambda: ch.score_head_bwd(x, w1, b1, w2, b2, ds))):
+        for _ in range(3):
+            call()
         torch.cuda.synchronize()
-    out[f"T={T} S={S} D={D} H={H}"] = {}
-    for e in prof.key_averages():
-        us = (getattr(e, "device_time_total", 0)
-              or getattr(e, "cuda_time_total", 0))
-        if us > 0:
-            out[f"T={T} S={S} D={D} H={H}"][e.key[:80]] = us / 1000 / 10
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        row = out[f"{name} T={T} S={S} D={D} H={H}"] = {}
+        for e in prof.key_averages():
+            us = (getattr(e, "device_time_total", 0)
+                  or getattr(e, "cuda_time_total", 0))
+            if us > 0:
+                row[e.key[:80]] = us / 1000 / 10
 print(json.dumps(out))
 """
 
 
 def head_split(trees) -> int:
-    """``head TREE ...``: K11's device ms a call split by kernel (the
-    tensor-core or CUDA-core kernel, the partials' sum, the wrapper's
-    copies) in each checkout, one JSON object a tree."""
+    """``head TREE ...``: K10's and K11's device ms a call split by kernel
+    (the route's kernel, K11's partials' sum, the wrappers' copies) in
+    each checkout, one JSON object a tree."""
     for tree in trees:
         r = _run([sys.executable, "-c", _HEAD_SPLIT], Path(tree).resolve())
         if r.returncode:
@@ -1939,7 +1980,8 @@ def ties() -> int:
 def sass(sources=(_RING_SRC, _MLP_SRC, _HEAD_SRC)) -> int:
     """Build checks of kernel sources with the card's toolkit: ``nvcc
     -Xptxas -v`` (registers, stack and spills a kernel, and every ptxas
-    warning, such as C7515's serialised wgmma) and ``cuobjdump -sass`` of
+    warning or performance-loss note, such as C7515's and C7518's
+    serialised wgmma) and ``cuobjdump -sass`` of
     the object (HGMMA and HMMA instructions, and 128-bit global loads and
     stores, ``LDG.E.128`` and ``STG.E.128``, a kernel); for K6b-ring's
     source also the CTAs an SM its launches take at each width class.
@@ -1995,7 +2037,9 @@ def sass(sources=(_RING_SRC, _MLP_SRC, _HEAD_SRC)) -> int:
                 bad |= bool(rec.get("hgmma") and (rec.get("spill_stores")
                                                   or rec.get("spill_loads")))
                 print(json.dumps(rec), flush=True)
-            warnings = [ln for ln in log if "warning" in ln]
+            # ptxas reports serialised wgmma (C7515, C7518) as "info"
+            warnings = [ln for ln in log
+                        if "warning" in ln or "Performance Loss" in ln]
             bad |= bool(warnings)
             print(json.dumps({"source": src, "ptxas_warnings": warnings}),
                   flush=True)
@@ -2028,8 +2072,9 @@ def main(argv=None) -> int:
                         metavar="SOURCE",
                         help=f"paths from the checkout (default: "
                              f"{_RING_SRC} {_MLP_SRC} {_HEAD_SRC})")
-    p_head = sub.add_parser("head", help="K11's device time split by "
-                                         "kernel, in each checkout")
+    p_head = sub.add_parser("head", help="K10's and K11's device time "
+                                         "split by kernel, in each "
+                                         "checkout")
     p_head.add_argument("trees", nargs="+", metavar="TREE")
     sub.add_parser("ties", help="K3's tensor-core re-summing slack: "
                                 "differing values and times at four "

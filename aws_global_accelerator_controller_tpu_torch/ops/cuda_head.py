@@ -12,10 +12,11 @@ reaching memory.  Like the reference's ``jax.custom_vjp`` ``_head_diff``
 - under autograd, :class:`ScoreHead`: the same forward, and in the
   backward kernel K11 (the reference's ``_bwd_kernel`` ``:90``), which
   recomputes the hidden and gives dx and the four weight gradients.
-  K11 has two routes, chosen inside the library by D and H alone
-  (:func:`bwd_tensor_core_route` asks it): tensor cores for D <= 128
-  and H <= 256, the CUDA-core kernel elsewhere; dx is the same bits on
-  both.
+
+Both kernels have two routes, chosen inside the library by D and H
+alone (:func:`tensor_core_route` asks it): tensor cores for D <= 128
+and H <= 256, the CUDA-core kernels elsewhere; K10's scores and K11's
+dx are the same bits on both.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs its plain version.  The plain versions follow the
@@ -214,12 +215,12 @@ def weight_grad_error(got: torch.Tensor, want: torch.Tensor,
     return float(((got - want).abs() / (limit.double().cpu() + ulp)).max())
 
 
-def _operands(name: str, x: torch.Tensor, w1, b1, w2, b2):
-    """(device, x as contiguous bf16 [N, Dp], w1 as contiguous [Dp, H],
-    b1, w2, b2 contiguous, N, D, H) for the kernels, D zero-padded to
-    Dp, a multiple of :data:`WIDTH_MULTIPLE`; or ValueError.  x is taken
-    as it is (a view) where it needs no padding, cast or realignment."""
-    dev = require_cuda(name, x, w1, b1, w2, b2)
+def _layout(name: str, x: torch.Tensor, w1, b1, w2, b2):
+    """(x as contiguous bf16 [N, Dp], w1 as contiguous [Dp, H], b1, w2,
+    b2 contiguous, N, D, H) for the kernels, D zero-padded to Dp, a
+    multiple of :data:`WIDTH_MULTIPLE`; or ValueError.  x and w1 are
+    taken as they are (views, no copy) where they need no padding, cast
+    or realignment."""
     D = x.shape[-1]
     H = w1.shape[-1] if w1.dim() == 2 else -1
     want = {"w1": (D, H), "b1": (H,), "w2": (H, 1), "b2": (1,)}
@@ -231,13 +232,21 @@ def _operands(name: str, x: torch.Tensor, w1, b1, w2, b2):
     x2 = x.reshape(-1, D).to(torch.bfloat16)
     if pad or not x2.is_contiguous() or x2.data_ptr() % 16:
         x2 = torch.nn.functional.pad(x2, (0, pad)).contiguous()
-    w1p = torch.nn.functional.pad(w1, (0, 0, 0, pad)).contiguous()
+    w1p = (torch.nn.functional.pad(w1, (0, 0, 0, pad)) if pad
+           else w1).contiguous()
     N = x2.shape[0]
     if N >= 2 ** 31 - 64 or x2.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel takes fewer than 2**31 rows, "
                          f"16-byte aligned")
-    return (dev, x2, w1p, b1.contiguous(), w2.contiguous(), b2.contiguous(),
-            N, D, H)
+    return (x2, w1p, b1.contiguous(), w2.contiguous(), b2.contiguous(), N,
+            D, H)
+
+
+def _operands(name: str, x: torch.Tensor, w1, b1, w2, b2):
+    """(device, then :func:`_layout`'s operands) of tensors that lie on
+    one CUDA device; or ValueError."""
+    dev = require_cuda(name, x, w1, b1, w2, b2)
+    return (dev, *_layout(name, x, w1, b1, w2, b2))
 
 
 def score_head_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -284,12 +293,12 @@ def score_head_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             db2.to(b2.dtype))
 
 
-def bwd_tensor_core_route(D: int, H: int) -> bool:
-    """Whether K11 takes its tensor-core route for rows of width D (padded
-    by the wrapper to a multiple of 8) and H hidden units.  The library
-    alone decides (``agac_score_head_bwd_tc_route``); this asks it, so it
-    builds the kernels and needs the CUDA toolkit."""
-    fn = library().agac_score_head_bwd_tc_route
+def tensor_core_route(D: int, H: int) -> bool:
+    """Whether K10 and K11 take their tensor-core route for rows of width
+    D (padded by the wrapper to a multiple of 8) and H hidden units.  The
+    library alone decides (``agac_score_head_tc_route``); this asks it, so
+    it builds the kernels and needs the CUDA toolkit."""
+    fn = library().agac_score_head_tc_route
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
     return bool(fn(D + -D % WIDTH_MULTIPLE, H))

@@ -1210,8 +1210,9 @@ def _head_rows_one(T, S, D, H, seed, iters=20, eager_iters=50):
         bound_ms(4 * N * D + 4 * N, 6.0 * N * D * H, BF16_FLOP_PER_S))
     bwd_rec["dx_max_ulps_of_magnitude"] = bwd[0][2]
     bwd_rec["weight_grad_error_over_limit"] = weight_errs
-    bwd_rec["k11_route"] = ("tensor cores" if ch.bwd_tensor_core_route(D, H)
-                            else "cuda cores")
+    route = "tensor cores" if ch.tensor_core_route(D, H) else "cuda cores"
+    fwd_rec["k10_route"] = route
+    bwd_rec["k11_route"] = route
     return fwd_rec, bwd_rec
 
 

@@ -1981,10 +1981,14 @@ def test_score_head_kernels_match_plain_versions_over_many_row_tiles(cuda):
 
 
 def test_score_head_backward_is_reproducible_and_autograd_takes_it(cuda):
-    """Two K11 runs agree bit for bit (no atomics; the per-CTA partials
-    sum in a fixed order), and autograd through ``score_head`` runs K10
-    once forward and K11 once backward, giving K11's gradients."""
+    """Two K10 runs agree bit for bit, and so do two K11 runs (no atomics;
+    the per-CTA partials sum in a fixed order), and autograd through
+    ``score_head`` runs K10 once forward and K11 once backward, giving
+    K11's gradients."""
     x, w1, b1, w2, b2, ds = _head_inputs(cuda, 64, 300, 32, 128, 4)
+    scores = [score_head_forward(x, w1, b1, w2, b2).view(torch.int32)
+              for _ in range(2)]
+    assert torch.equal(*scores)
     runs = [score_head_bwd(x, w1, b1, w2, b2, ds) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
@@ -2003,7 +2007,8 @@ _HEAD_ROUTE = "  return D <= kMaxDPad && H <= kTcMaxH;"
 @pytest.fixture(scope="module")
 def cuda_core_head(tmp_path_factory):
     """``csrc/score_head.cu`` built alone with its tensor-core route
-    forced off: every width on the CUDA-core kernel, the parent's K11."""
+    forced off: every width on the CUDA-core kernels, the parents of K10
+    and K11."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     src_text = (build.CSRC / "score_head.cu").read_text()
@@ -2016,10 +2021,12 @@ def cuda_core_head(tmp_path_factory):
                     f"-I{build.CSRC}", str(src), "-o", str(lib)],
                    check=True, capture_output=True)
     so = ctypes.CDLL(str(lib))
+    so.agac_score_head_fwd.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     so.agac_score_head_bwd_ctas.argtypes = [ctypes.c_int] * 3
     so.agac_score_head_bwd.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
-    so.agac_score_head_bwd_tc_route.argtypes = [ctypes.c_int] * 2
+    so.agac_score_head_tc_route.argtypes = [ctypes.c_int] * 2
     return so
 
 
@@ -2028,7 +2035,7 @@ def _cuda_core_dx(so, x, w1, b1, w2, b2, ds):
     dev, x2, w1p, b1c, w2c, _, N, D, H = cuda_head._operands(
         "cuda_core_dx", x, w1, b1, w2, b2)
     Dp = x2.shape[1]
-    assert so.agac_score_head_bwd_tc_route(Dp, H) == 0
+    assert so.agac_score_head_tc_route(Dp, H) == 0
     ctas = so.agac_score_head_bwd_ctas(N, Dp, H)
     assert ctas > 0
     n = Dp * H + 2 * H + 1
@@ -2058,7 +2065,7 @@ def test_score_head_backward_tensor_cores_keep_the_parents_dx(
     with itself.  The train command's shape and the reference's head
     shape take the route."""
     if (D, H) in ((32, 128), (128, 256)):
-        assert cuda_head.bwd_tensor_core_route(D, H)
+        assert cuda_head.tensor_core_route(D, H)
     x, w1, b1, w2, b2, ds = _head_inputs(cuda, T, S, D, H, D * H + T)
     got = score_head_bwd(x, w1, b1, w2, b2, ds)[0]
     want = _cuda_core_dx(cuda_core_head, x, w1, b1, w2, b2, ds)
@@ -2067,6 +2074,77 @@ def test_score_head_backward_tensor_cores_keep_the_parents_dx(
     assert not bool(diff.any()), (
         f"{int(diff.sum())} of {diff.numel()} dx values differ, first at "
         f"{tuple(int(i) for i in diff.nonzero()[0])}")
+
+
+def _cuda_core_scores(so, x, w1, b1, w2, b2):
+    """K10's scores from the CUDA-core build on the inputs
+    ``score_head_forward`` takes."""
+    dev, x2, w1p, b1c, w2c, b2c, N, D, H = cuda_head._operands(
+        "cuda_core_scores", x, w1, b1, w2, b2)
+    Dp = x2.shape[1]
+    assert so.agac_score_head_tc_route(Dp, H) == 0
+    out = torch.empty(N, dtype=torch.float32, device=dev)
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (
+        x2, w1p, b1c, w2c, b2c, out)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert so.agac_score_head_fwd(*args, N, Dp, H,
+                                  ctypes.c_void_p(stream)) == 0
+    return out.reshape(x.shape[:-1])
+
+
+def _assert_same_scores(got, want):
+    diff = got.view(torch.int32) != want.view(torch.int32)
+    assert not bool(diff.any()), (
+        f"{int(diff.sum())} of {diff.numel()} scores differ, first at "
+        f"{tuple(int(i) for i in diff.nonzero()[0])}: "
+        f"{float(got[diff][0])!r} against {float(want[diff][0])!r}")
+
+
+@pytest.mark.parametrize("T,S,D,H", [
+    *((19, 37, D, H) for D in (8, 20, 96, 128, 160)
+      for H in (16, 128, 200, 256, 512)),
+    (64, 1000, 32, 128), (256, 128, 128, 256)])
+def test_score_head_forward_tensor_cores_keep_the_parents_scores(
+        cuda, cuda_core_head, T, S, D, H):
+    """K10's scores on its tensor-core route (D <= 128, H <= 256) equal
+    bit for bit the CUDA-core kernel's, the parent's K10, built from the
+    same source with the route forced off, on the same inputs: the card
+    tests' sweep (703 rows), the train command's widths over many row
+    tiles and the reference's head shape.  Widths off the route compare
+    the kernel with itself.  The train command's shape and the
+    reference's head shape take the route."""
+    if (D, H) in ((32, 128), (128, 256)):
+        assert cuda_head.tensor_core_route(D, H)
+    x, w1, b1, w2, b2, _ = _head_inputs(cuda, T, S, D, H, D * H + T + 1)
+    got = score_head_forward(x, w1, b1, w2, b2)
+    want = _cuda_core_scores(cuda_core_head, x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    _assert_same_scores(got, want)
+
+
+@pytest.mark.parametrize("N", [1, 63, 65, 703])
+@pytest.mark.parametrize("D,H", [(128, 256), (136, 256), (128, 257)])
+def test_score_head_forward_on_each_side_of_the_route(cuda, cuda_core_head,
+                                                      D, H, N):
+    """K10 at the edges of its tensor-core route, D = 128 (on it) and 136
+    (off it) at H = 256, and H = 257 (off it) at D = 128, at one row, a
+    tile less one, a tile and one, and 703 rows: each within 2 bf16 ulps
+    of what the score sums of its plain version; on the route also bit
+    for bit the CUDA-core build's."""
+    on_route = cuda_head.tensor_core_route(D, H)
+    assert on_route == (D <= 128 and H <= 256)
+    x, w1, b1, w2, b2, _ = _head_inputs(cuda, N, 1, D, H, D + H + N)
+    build.reset_launch_counts()
+    got = score_head_forward(x, w1, b1, w2, b2)
+    assert build.launch_counts()["score_head_fwd"] == 1
+    torch.cuda.synchronize()
+    assert got.shape == (N, 1) and got.dtype == torch.float32
+    assert parity.scores_close(
+        _host(got), _host(score_head_plain(x, w1, b1, w2, b2)),
+        scale=_host(score_head_magnitude(x, w1, b1, w2, b2)))
+    if on_route:
+        _assert_same_scores(
+            got, _cuda_core_scores(cuda_core_head, x, w1, b1, w2, b2))
 
 
 def test_score_head_refuses_what_it_cannot_take(cuda):

@@ -68,9 +68,22 @@ def test_every_k3_fault_is_planted_in_the_mlp():
                   "plan_group_from_first_tile_only"}
 
 
+def _score_head_faults():
+    return {name for name, (src, _, _) in FAULTS.items()
+            if src.endswith("csrc/score_head.cu")}
+
+
 def test_every_k11_fault_is_planted_in_the_score_head():
-    k11 = {name for name, (src, _, _) in FAULTS.items()
-           if src.endswith("csrc/score_head.cu")}
+    k11 = {name for name in _score_head_faults()
+           if not name.startswith("fwd_tc_")}
     assert k11 == {"dx_skips_last_k16_step", "dw1_first_tile_only",
                    "dh_without_relu_gate", "half_partials",
                    "zero_weight_grads"}
+
+
+def test_every_k10_fault_is_planted_in_the_score_head():
+    k10 = {name for name in _score_head_faults()
+           if name.startswith("fwd_tc_")}
+    assert k10 == {"fwd_tc_drops_last_k16_step",
+                   "fwd_tc_skips_last_hidden_chunk",
+                   "fwd_tc_fold_without_relu"}

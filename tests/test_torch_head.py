@@ -355,3 +355,23 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda_head.score_head_forward(*meta[:5])
     with pytest.raises(ValueError, match="CUDA"):
         cuda_head.score_head_bwd(*meta)
+
+
+@pytest.mark.parametrize("D", [32, 20])
+def test_kernel_layout_takes_w1_as_it_is(D):
+    """The kernels' operands (``_layout``, past the wrappers' device
+    check): at D = 32 x and w1 are the caller's own storage, no copy
+    kernel before K10 or K11; at D = 20 both are padded with zeros to
+    D = 24, the values unchanged."""
+    x, w1, b1, w2, b2 = torch_inputs(head_inputs(2, 3, D, 16, 0))[:5]
+    x2, w1p, *_, N, got_d, H = cuda_head._layout("layout", x, w1, b1, w2,
+                                                 b2)
+    assert (N, got_d, H) == (6, D, 16)
+    if D % cuda_head.WIDTH_MULTIPLE == 0:
+        assert w1p.data_ptr() == w1.data_ptr()
+        assert x2.data_ptr() == x.data_ptr()
+    else:
+        assert w1p.shape == (24, 16) and x2.shape == (6, 24)
+        assert torch.equal(w1p[:D], w1) and not bool(w1p[D:].any())
+        assert torch.equal(x2[:, :D], x.reshape(6, D))
+        assert not bool(x2[:, D:].any())
