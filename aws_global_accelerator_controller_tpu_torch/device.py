@@ -11,7 +11,9 @@ On first use of each CUDA device, :func:`resolve_device` launches the
 probe kernel (``csrc/probe.cu``, the port of
 ``compat/capability.py::CapabilityRegistry._tiny_kernel``) on an
 (8, 128) f32 tile and refuses the device unless the answer is exactly
-twice the input.
+twice the input.  The same source holds an empty kernel,
+:func:`launch_floor`, by which the card's least launch time is
+measured.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ KERNEL_CAPABILITY = (9, 0)
 
 _PROBE = Kernel("probe_double", "agac_probe_double",
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong])
+_FLOOR = Kernel("launch_floor", "agac_launch_floor", [])
 
 _lock = threading.Lock()
 _probed: Set[int] = set()
@@ -57,6 +60,17 @@ def probe_double(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         _PROBE(dev, x, out, x.numel())
     return out
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch the empty kernel of ``csrc/probe.cu`` on ``device``'s
+    current stream: timed, it is the least device time of any launch on
+    the card (``chip_smoke.py`` records it beside K1 as
+    ``launch_floor_ms``).  No path of the port runs it."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"launch_floor: the kernel runs on a CUDA device, "
+                         f"got {device}")
+    _FLOOR(torch.device(device))
 
 
 def _probe(dev: torch.device) -> None:

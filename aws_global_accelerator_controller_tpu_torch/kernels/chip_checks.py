@@ -4,7 +4,7 @@ one build, and a profile of the train step.
 ``ab TREE_A TREE_B``: device times of K2 (``chip_smoke.py``'s two shapes
 of it, 16384 x 16 and 1,000,000 x 4; also on inputs that miss the L2, by
 this checkout's ``chip_smoke.time_cold`` in both trees), of K3 (both
-entries, H = 128 and 256),
+entries, H = 128 and 256), of K4's wave splice and of K1 (below),
 of K10 and K11 (the train command's default shape and the reference's
 own head shape; also eager, a call from Python), of the fused train
 step that launches them (``chip_smoke.py``'s ``temporal_fused_train``,
@@ -58,10 +58,24 @@ ulps) of B's first run from A's, and where K6b-ring's differ, of its o,
 m and l in f32 ulps (over the first 256 heads of a point).  This is how
 two versions of a kernel are compared.
 
+Each run of ``ab`` also times K4 and K1 (``_WAVE``): K4's splice of one
+resident wave into the six grids of ``chip_smoke.py``'s 1,000,000-group
+fleet at a churn wave's 10,000 rows and the cold wave's 1,000,000 (the
+grids and rows of this checkout's ``chip_smoke._k4_wave`` in both
+trees), as each checkout's planner makes it (a tree without
+``fleet.pack_splice`` pads the rows to the planner's power-of-two
+bucket and splices each grid apart): device ms (the splice's launches
+in a CUDA graph of 20), eager ms (from the host rows: pad or pack,
+upload, launch), six ``index_copy_``, K4's launches a wave, and digests
+of the six grids after it; K1 at 8 x 128 (device, eager; digests at
+n = 1, 3, 1024, 4097 and at an offset of one float), and the empty
+kernel's launch floor where the tree has it.  ``ab`` fails unless these
+digests are alike too (``wave_digests_equal``).
+
 ``faults``: plants faults in K10's and K11's tensor-core routes, in
 K11's weight-gradient sums, in K9's sums,
 in K7's and K8's pipeline, in the forward K6a/K6b, in K6b-ring, in
-K2's quad route and in K3's tensor-core route, each
+K2's quad route, in K3's tensor-core route and in K4, each
 in a copy of this checkout made in a temporary directory,
 and demands that the kernel's card tests and ``chip_smoke.py``'s check
 of it fail on every one, the latter at every shape where the fault
@@ -138,7 +152,14 @@ changes the result:
   misses layer 2's last chunk of output columns (64 of 128 at H =
   128, 128 of 256 at H = 256); ``plan_group_from_first_tile_only``, a
   group over several tiles (E > 64) is planned on the scores of its
-  first tile alone.
+  first tile alone;
+- K4 (the card tests ``-k "splice_kernel or resident_waves_on_card"``;
+  ``chip_smoke.py``'s ``_k4_one`` at the churn and the cold wave, six
+  grids a launch, four of them on the vector path):
+  ``vector_path_drops_last_lane``, a row on the 16-byte path leaves its
+  last vector unwritten; ``table_skips_last_grid``, the kernel's table
+  leaves its last grid out (the launch still covers it, writing
+  nothing).
 
 ``ties``: builds ``csrc/mlp.cu`` alone with its tensor-core route's
 re-summing slack (``near_tie``'s bounds ``kTieX``, ``kTieV``,
@@ -507,6 +528,105 @@ print(json.dumps({"ms": out, "digests": digests,
                   "weight_grad_error": weight_errors}))
 """
 
+# run inside a checkout: K4's splice of one resident wave at a churn wave's
+# 10,000 rows and the cold wave's 1,000,000, on the grids, positions and
+# rows of ``_k4_wave`` of the chip_smoke.py named by its first argument
+# (the same data in both trees), as that checkout's planner splices them;
+# and K1.  A checkout from before the batched splice (no
+# ``fleet.pack_splice``: this PR's parent) pads the rows to the planner's
+# power-of-two bucket (pads repeat row 0) and splices each grid apart.
+# Prints {"ms": {row: ms}, "digests": {name: sha256}, "launches":
+# {wave: K4 launches a wave}}.
+_WAVE = r"""
+import hashlib, importlib.util, json, sys, numpy as np, torch
+from aws_global_accelerator_controller_tpu_torch import device as tdevice
+from aws_global_accelerator_controller_tpu_torch.kernels import build
+from aws_global_accelerator_controller_tpu_torch.parallel import fleet
+from aws_global_accelerator_controller_tpu_torch.reconcile.columnar import (
+    _pad_rows_bucket)
+spec = importlib.util.spec_from_file_location("timers", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+build.library()
+dev = tdevice.resolve_device("cuda")
+out, digests, launches = {}, {}, {}
+
+
+def digest(*xs):
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+for wave, seed in (("churn", 5), ("cold", 6)):
+    grids, ks, kg, blocks = cs._k4_wave(wave, seed)
+    bases = [g.clone() for g in grids]
+    S, cap = grids[0].shape[:2]
+    K = ks.size
+    flats = [g.view(S * cap, -1) for g in grids]
+    lin64 = torch.from_numpy(ks * cap + kg).to(dev)
+    real = [torch.from_numpy(b.reshape(K, -1)).to(dev) for b in blocks]
+    splice = fleet.make_row_splice(dev)
+    if hasattr(fleet, "pack_splice"):
+        lin, rows = fleet.pack_splice((S, cap), ks, kg, blocks, dev)
+
+        def launch():
+            fleet._splice_grids(flats, lin, rows)
+
+        def eager():
+            splice(grids, ks, kg, blocks)
+    else:
+        Kp = _pad_rows_bucket(K)
+        pad = np.zeros(Kp - K, np.int64)
+        lin = torch.from_numpy(np.concatenate([ks * cap + kg, pad + (
+            ks[0] * cap + kg[0])]).astype(np.int32)).to(dev)
+        rows = [torch.cat([r, r[:1].expand(Kp - K, -1)]) for r in real]
+
+        def launch():
+            for f, r in zip(flats, rows):
+                fleet._SPLICE(dev, f, lin, r, Kp, f.shape[1])
+
+        def eager():
+            ksp = np.concatenate([ks, pad + ks[0]]).astype(np.int32)
+            kgp = np.concatenate([kg, pad + kg[0]]).astype(np.int32)
+            for g, r in zip(grids, blocks):
+                r = np.concatenate([r] + [r[:1]] * (Kp - K))
+                splice(g, ksp, kgp, torch.as_tensor(r, device=dev))
+
+    def library():
+        for f, r in zip(flats, real):
+            f.index_copy_(0, lin64, r)
+
+    shape = f"{wave} K={K}"
+    out["row_splice wave " + shape] = cs.time_device(launch)
+    out["row_splice wave eager " + shape] = cs.time_eager(
+        eager, *((50, 5) if wave == "churn" else (5, 1)))
+    out["index_copy_ wave " + shape] = cs.time_device(library)
+    for g, b in zip(grids, bases):
+        g.copy_(b)
+    build.reset_launch_counts()
+    eager()
+    torch.cuda.synchronize()
+    launches[wave] = build.launch_counts()["row_splice"]
+    digests["wave " + shape] = digest(*grids)
+    del grids, flats, bases, real, lin64, lin, rows
+g = torch.Generator(device="cuda").manual_seed(1)
+x = torch.randn(8, 128, device="cuda", generator=g)
+out["probe_double 8x128"] = cs.time_device(lambda: tdevice.probe_double(x))
+out["probe_double eager 8x128"] = cs.time_eager(
+    lambda: tdevice.probe_double(x))
+for n in (1, 3, 1024, 4097):
+    buf = torch.randn(n + 1, device="cuda", generator=g)
+    digests[f"probe n={n}"] = digest(tdevice.probe_double(buf[:n]),
+                                     tdevice.probe_double(buf[1:]))
+if hasattr(tdevice, "launch_floor"):
+    out["launch_floor"] = cs.time_device(lambda: tdevice.launch_floor(dev))
+    out["launch_floor eager"] = cs.time_eager(
+        lambda: tdevice.launch_floor(dev))
+print(json.dumps({"ms": out, "digests": digests, "launches": launches}))
+"""
+
 # run inside a checkout: a kernel's check in chip_smoke.py at each shape
 # of ``shapes`` (a call of ``fn`` each), one error line per failed shape
 _SMOKE = r"""
@@ -530,8 +650,17 @@ _FWD_SRC = f"{PKG}/csrc/flash_attention.cu"
 _RING_SRC = f"{PKG}/csrc/flash_attention_ring.cu"
 _K2_SRC = f"{PKG}/csrc/plan_weights.cu"
 _MLP_SRC = f"{PKG}/csrc/mlp.cu"
+_K4_SRC = f"{PKG}/csrc/row_splice.cu"
 #: name -> (source, a text of it once, the faulty replacement)
 FAULTS = {
+    "vector_path_drops_last_lane": (
+        _K4_SRC,
+        "      for (long long c = 0; c < W4; ++c) d[c] = __ldg(s + c);",
+        "      for (long long c = 0; c < W4 - 1; ++c) d[c] = __ldg(s + c);"),
+    "table_skips_last_grid": (
+        _K4_SRC,
+        "  for (int j = 0; j < n; ++j) {",
+        "  for (int j = 0; j < n - 1; ++j) {"),
     "dx_skips_last_k16_step": (
         _HEAD_SRC,
         "          for (int kk = 0; kk < 4; ++kk) {\n"
@@ -706,6 +835,8 @@ CHECKS = {
     _K2_SRC: ("quantizer_kernel", "_k2_one",
               ((16384, 16, 1), (1000000, 4, 2)), 2),
     _MLP_SRC: ("fused_mlp or row_scoring", "_k3_both", ((128,), (256,)), 2),
+    _K4_SRC: ("splice_kernel or resident_waves_on_card", "_k4_one",
+              (("churn", 5), ("cold", 6)), 2),
 }
 
 
@@ -818,14 +949,16 @@ def ab(tree_a: str, tree_b: str) -> int:
 
         def one(name, tree):
             saved = str(Path(tmp) / f"run{len(runs)}.pt")
-            r = _run([sys.executable, "-c", _TIME, saved,
-                      str(ROOT / "chip_smoke.py")], Path(tree).resolve())
-            if r.returncode:
-                print(r.stdout, r.stderr[-4000:], file=sys.stderr)
+            res = _snippet(_TIME, tree, saved, str(ROOT / "chip_smoke.py"))
+            wave = _snippet(_WAVE, tree, str(ROOT / "chip_smoke.py"))
+            if res is None or wave is None:
                 return None
-            res = json.loads(r.stdout.strip().splitlines()[-1])
+            res["ms"].update(wave["ms"])
+            res["digests"].update(wave["digests"])
+            res["k4_launches_a_wave"] = wave["launches"]
             runs.append({"tree": name, "path": tree, "saved": saved, **res})
             print(json.dumps({"tree": name, "path": tree, "ms": res["ms"],
+                              "k4_launches_a_wave": wave["launches"],
                               "weight_grad_error": res.get(
                                   "weight_grad_error"),
                               "digests": {k: v for k, v in
@@ -858,7 +991,12 @@ def ab(tree_a: str, tree_b: str) -> int:
         k2_differ = [k for k in differ if k.startswith("k2 ")]
         mlp_differ = [k for k in differ if k.startswith("mlp ")]
         head_differ = [k for k in differ if k.startswith("head ")]
+        wave_differ = [k for k in differ if k.startswith(("wave ", "probe "))]
         result = {"mean_ms": mean, "b_over_a": ratio,
+                  "k4_launches_a_wave": {r["tree"]: r["k4_launches_a_wave"]
+                                         for r in runs},
+                  "wave_digests_equal": not wave_differ,
+                  "wave_differing": wave_differ,
                   "bwd_digests_equal": not bwd_differ,
                   "fwd_digests_equal": not fwd_differ,
                   "fwd_points": sum(k.startswith("fwd ")
@@ -893,10 +1031,20 @@ def ab(tree_a: str, tree_b: str) -> int:
                 ("o", "m", "l"))
         print(json.dumps(result), flush=True)
     ok = (not bwd_differ and not k2_differ and not mlp_differ
-          and not head_differ and passed[_HEAD_PROBE]
+          and not head_differ and not wave_differ and passed[_HEAD_PROBE]
           and (not fwd_differ or not probe_passed)
           and (not ring_differ or not ring_probe_passed))
     return 0 if ok else 1
+
+
+def _snippet(code: str, tree: str, *args):
+    """Run ``code`` in a fresh process from the checkout ``tree``; its last
+    line of output as JSON, or None (its output printed) if it failed."""
+    r = _run([sys.executable, "-c", code, *args], Path(tree).resolve())
+    if r.returncode:
+        print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
+        return None
+    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def _copy(dst: Path) -> None:
@@ -2059,8 +2207,9 @@ def main(argv=None) -> int:
     p_ab.add_argument("tree_a")
     p_ab.add_argument("tree_b")
     p_faults = sub.add_parser("faults",
-                              help="plant faults in K11, K9, K7, K8, "
-                                   "K6a/K6b, K6b-ring, K2 and K3")
+                              help="plant faults in K11, K10, K9, K7, "
+                                   "K8, K6a/K6b, K6b-ring, K2, K3 and "
+                                   "K4")
     p_faults.add_argument("names", nargs="*", metavar="NAME",
                           help="faults to plant (default: all): "
                                + ", ".join(FAULTS))

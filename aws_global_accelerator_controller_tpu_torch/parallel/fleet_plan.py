@@ -319,8 +319,10 @@ def make_incremental_pass(model, splice):
     (in place), replan the dirty shards, write fresh weight caches back
     (in place), all on the resident grids' device.
 
-    Shapes: resident grids ``[S, cap, (E)]``; ``Kp`` spliced rows at
-    host positions ``(ks, kg)``; ``Dbp`` gathered shards named by
+    Shapes: resident grids ``[S, cap, (E)]``; ``K`` spliced rows at
+    host positions ``(ks, kg)``, the six grids' row blocks host arrays
+    too (``splice`` uploads them in one copy and writes every grid in
+    one launch, reading nothing back); ``Dbp`` gathered shards named by
     ``idx``, of which the first ``Db`` are real (the rest repeat
     ``idx[0]`` and are never written back); ``Np`` packed score rows
     with batch-global ``seg`` (``Dbp*cap`` = pad).  The planning math is
@@ -333,8 +335,7 @@ def make_incremental_pass(model, splice):
                     rescored):
         res_d, res_o, res_ow, res_cw, res_m, res_sw = res
         # 1. splice the wave's dirty rows into the resident grids
-        for dst, rows in zip(res, rows6):
-            splice(dst, ks, kg, rows)
+        splice(res, ks, kg, rows6)
         # 2. gather the dirty shards and replan them as one block
         Dbp = idx.shape[0]
         S, cap, E = res_d.shape
@@ -459,20 +460,14 @@ class ResidentFleetPlanner:
         K = len(positions)
 
         # dirty-row splice batch (row-granular host->device traffic:
-        # K rows, not S*cap); pad rows re-write row 0's value, so
-        # duplicate destinations always carry equal rows
-        Kp = _pad_rows_bucket(K)
-        ks = np.zeros(Kp, np.int32)
-        kg = np.zeros(Kp, np.int32)
-        ks[:K] = [s for s, _ in positions]
-        kg[:K] = [gi for _, gi in positions]
-        ks[K:], kg[K:] = ks[0], kg[0]
-        pos_idx = (ks[:K], kg[:K])
+        # the K real rows, not S*cap), packed with its positions into one
+        # upload by the splice
+        ks = np.fromiter((s for s, _ in positions), np.int32, K)
+        kg = np.fromiter((gi for _, gi in positions), np.int32, K)
+        pos_idx = (ks, kg)
         rows6 = (f.desired[pos_idx], f.observed[pos_idx],
                  f.observed_w[pos_idx], f.cached_w[pos_idx],
                  f.weight_mode[pos_idx], f.spec_w[pos_idx])
-        rows6 = tuple(np.concatenate([r] + [r[:1]] * (Kp - K))
-                      if Kp > K else r for r in rows6)
 
         # gathered dirty-shard batch + packed score rows for slots
         # needing a rescore
@@ -505,10 +500,9 @@ class ResidentFleetPlanner:
         dev = self.device
         res = self._resident_front()
         new_res, d_w, add, rm, rw = self._pass(
-            self.params, res, ks, kg,
-            tuple(_to_device(r, dev) for r in rows6),
-            _to_device(idx, dev), Db, _to_device(srows, dev),
-            _to_device(seg, dev), _to_device(slot_col, dev),
+            self.params, res, ks, kg, rows6, _to_device(idx, dev), Db,
+            _to_device(srows, dev), _to_device(seg, dev),
+            _to_device(slot_col, dev),
             _to_device(rescored, dev))
         self.ring.advance(new_res)
         # synchronous copies: complete before the next wave's splice

@@ -16,7 +16,9 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
 3. builds a 1,000,000-group resident fleet over 128 shards (cap 4),
    plans it, runs three waves of 1% clustered churn and one clean wave
    through ``ResidentFleetPlanner``, and checks the resident plan
-   bit for bit against a full repack (``verify_full_repack``);
+   bit for bit against a full repack (``verify_full_repack``); each
+   wave splices its rows into the six resident grids with one launch of
+   the row splice (K4);
 4. runs ``plan --model temporal`` at its defaults against the same
    command on the CPU; serving plans through the O(T) last-query path,
    so it must launch no flash attention, as in the reference;
@@ -94,8 +96,10 @@ CUDA toolkit (``nvcc``).  It builds the port's kernels from
     over 4 shards, held to the flat pass on the card and timed beside it;
 19. holds every kernel against its plain PyTorch version on the card, at
     the shapes the paths give it and at widths past one tile (K3 at
-    H = 256, the flash kernels at D = 160), and times both (and, where
-    one exists, a PyTorch call computing the same function; K9 and K7 +
+    H = 256, the flash kernels at D = 160; K4 as phase 3's churn and
+    cold waves splice, six grids a launch), and times both (and, where
+    one exists, a PyTorch call computing the same function; beside K1
+    an empty kernel, the card's least launch time; K9 and K7 +
     K8 bit for bit on one another's inputs; K3's plan entry bit for bit
     K2 on its row entry's scores at E = 16, 7 and 300; for
     K6b-ring also at Tq != Tk, the zigzag
@@ -450,6 +454,7 @@ def _k1():
     import torch
 
     from aws_global_accelerator_controller_tpu_torch.device import (
+        launch_floor,
         probe_double,
         probe_double_reference,
     )
@@ -458,12 +463,17 @@ def _k1():
     got, want = probe_double(x), probe_double_reference(x)
     torch.cuda.synchronize()
     check(torch.equal(got, want), "probe_double disagrees with 2 * x")
-    return _record(
+    rec = _record(
         "probe_double", f"{SRC}/probe.cu",
         f"{REF}/compat/capability.py:215", "8x128", 0.0, 0.0,
         timings(lambda: probe_double(x), lambda: probe_double_reference(x),
                 lambda: torch.mul(x, 2.0)),
         bound_ms(x.numel() * 8, x.numel(), F32_FLOP_PER_S))
+    # the least device time of any launch on this card: the empty kernel
+    rec["launch_floor_ms"] = time_device(lambda: launch_floor(x.device))
+    rec["launch_floor_eager_ms"] = time_eager(
+        lambda: launch_floor(x.device))
+    return rec
 
 
 def _k2_one(G, E, seed, iters=20, eager_iters=50):
@@ -647,49 +657,101 @@ def _k3_both(H=128, iters=20, eager_iters=50):
             _k3_scores(H, iters, eager_iters))
 
 
-def _k4_one(S, cap, W, K, seed):
+def _k4_wave(wave: str, seed: int):
+    """The six resident grids of phase 3's fleet on the card (four
+    [S, cap, E] endpoint grids, two [S, cap] planes, random int32) and one
+    wave's real rows on the host: the positions of the groups phase 3's
+    first churn wave changes (1% of the fleet from a third of the way
+    in), or of every group (the cold wave), as ``ResidentFleetGen``
+    places them."""
     import numpy as np
     import torch
 
-    from aws_global_accelerator_controller_tpu_torch.parallel import fleet
+    S, G, E = RESIDENT_SHARDS, RESIDENT_GROUPS, RESIDENT_CAP
+    cap = -(-G // S)
+    start, K = ((G // 3, max(1, int(G * RESIDENT_DIRT))) if wave == "churn"
+                else (0, G))
+    i = np.arange(start, start + K, dtype=np.int64)
+    ks = (i * S) // G
+    kg = i - (ks * G + S - 1) // S
+    rng = np.random.default_rng(seed)
+    shapes = [(S, cap, E)] * 4 + [(S, cap)] * 2
+    grids = [torch.from_numpy(rng.integers(0, 1 << 30, sh, dtype=np.int32))
+             .cuda() for sh in shapes]
+    blocks = [rng.integers(0, 1 << 30, (K, *sh[2:]), dtype=np.int32)
+              for sh in shapes]
+    return grids, ks, kg, blocks
+
+
+def _k4_one(wave, seed, iters=20, eager_iters=50):
+    """K4 as a wave of the resident planner runs it: the six grids' real
+    rows in one launch from one upload (``make_row_splice``), held bit for
+    bit to the plain version grid by grid; timed as the kernel alone (a
+    CUDA graph of wave-splices), as the planner's call from the host rows
+    (eager: pack, upload, launch) and against six ``index_copy_``."""
+    import torch
+
+    from aws_global_accelerator_controller_tpu_torch.kernels import build
     from aws_global_accelerator_controller_tpu_torch.parallel.fleet import (
-        row_splice,
+        _splice_grids,
+        make_row_splice,
+        pack_splice,
         row_splice_reference,
     )
 
-    rng = np.random.default_rng(seed)
-    lin_np = rng.choice(S * cap, size=K, replace=False).astype(np.int32)
-    lin_np[-16:] = lin_np[0]            # pad rows repeat row 0's target
-    rows = torch.from_numpy(
-        rng.integers(0, 1 << 30, (K, W)).astype(np.int32)).cuda()
-    rows[-16:] = rows[0]
-    lin = torch.from_numpy(lin_np).cuda()
-    base = torch.from_numpy(
-        rng.integers(0, 1 << 30, (S * cap, W)).astype(np.int32)).cuda()
-    got = row_splice(base.clone(), lin, rows)
-    want = row_splice_reference(base.clone(), lin, rows)
+    grids, ks, kg, blocks = _k4_wave(wave, seed)
+    S, cap = grids[0].shape[:2]
+    K = ks.size
+    dev = grids[0].device
+    flats = [g.view(S * cap, -1) for g in grids]
+    lin64 = torch.from_numpy(ks * cap + kg).to(dev)
+    real = [torch.from_numpy(b.reshape(K, -1)).to(dev) for b in blocks]
+    want = [f.clone() for f in flats]
+    for f, r in zip(want, real):
+        row_splice_reference(f, lin64, r)
+    splice = make_row_splice(dev)
+    before = build.launch_counts()["row_splice"]
+    splice(grids, ks, kg, blocks)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), f"row_splice [{S * cap}, {W}] disagrees")
-    dst = base.clone()
-    lin64 = lin.long()
-    # the wrapper's bounds check reads lin's range back to the host,
-    # which a CUDA graph cannot capture: the device time is the bare
-    # kernel's, the eager time the wrapper's, check included
-    times = timings(lambda: fleet._SPLICE(dst.device, dst, lin, rows, K, W),
-                    lambda: row_splice_reference(dst, lin, rows),
-                    lambda: dst.index_copy_(0, lin64, rows))
-    times["eager_ms"] = time_eager(lambda: row_splice(dst, lin, rows))
-    return _record(
+    launches = build.launch_counts()["row_splice"] - before
+    check(launches == 1, f"row_splice: a {wave} wave launched {launches} "
+                         f"times, not once")
+    for j, (f, w) in enumerate(zip(flats, want)):
+        check(torch.equal(f, w), f"row_splice: the {wave} wave's grid {j} "
+                                 f"disagrees with the plain version")
+    lin, rows = pack_splice((S, cap), ks, kg, blocks, dev)
+
+    def plain():
+        for f, r in zip(flats, rows):
+            row_splice_reference(f, lin, r)
+
+    def library():
+        for f, r in zip(flats, real):
+            f.index_copy_(0, lin64, r)
+
+    # a cold wave's eager call packs and uploads 148 MB: fewer of them
+    eager = ((max(2, eager_iters // 10), 1) if wave == "cold"
+             else (eager_iters, 5))
+    times = {"ms": time_device(
+                 lambda: _splice_grids(flats, lin, rows), iters),
+             "plain_ms": time_device(plain, iters),
+             "library_ms": time_device(library, iters),
+             "eager_ms": time_eager(lambda: splice(grids, ks, kg, blocks),
+                                    *eager),
+             "plain_eager_ms": time_eager(plain, *eager)}
+    widths = [f.shape[1] for f in flats]
+    rec = _record(
         "row_splice", f"{SRC}/row_splice.cu",
-        f"{REF}/parallel/fleet.py:258", f"{K} rows into {S * cap}x{W}",
-        0.0, 0.0, times, bound_ms(K * (W * 8 + 4), 0.0, F32_FLOP_PER_S))
+        f"{REF}/parallel/fleet.py:258",
+        f"{wave} wave: {K} rows into six grids of {S * cap} rows "
+        f"(W = {', '.join(map(str, widths))})", 0.0, 0.0, times,
+        bound_ms(K * (4 + 8 * sum(widths)), 0.0, F32_FLOP_PER_S))
+    rec["launches_a_wave"] = launches
+    return rec
 
 
 def _k4():
-    cap = -(-RESIDENT_GROUPS // RESIDENT_SHARDS)
-    return _other_shape(
-        _k4_one(RESIDENT_SHARDS, cap, RESIDENT_CAP, 10_000, 5),
-        _k4_one(RESIDENT_SHARDS, cap, 1, 10_000, 6))
+    return _other_shape(_k4_one("churn", 5), _k4_one("cold", 6))
 
 
 def _k6a_one(T, S, D, seed, iters=20, eager_iters=50):
@@ -2285,6 +2347,12 @@ def phase_resident(device: str, groups: int = RESIDENT_GROUPS,
         missing = [k for k in WAVE_KERNELS if churn.get(k, 0) == 0]
         check(not missing,
               f"resident: the churn waves never launched {missing}")
+        # K4 once a wave: every grid's rows in one launch
+        check(after_cold["row_splice"] == 1
+              and churn["row_splice"] == RESIDENT_WAVES,
+              f"resident: K4 launched {after_cold['row_splice']} times in "
+              f"the cold wave and {churn['row_splice']} in "
+              f"{RESIDENT_WAVES} churn waves, not once a wave")
     calls = planner.device_calls
     clean = planner.plan_wave()
     check(not clean.device_call and planner.device_calls == calls,
@@ -2381,7 +2449,7 @@ def main() -> int:
             ("whole_fleet", lambda c: phase_fleet("cuda", launch_counts=c),
              ("fused_mlp_scores", "plan_weights"), no_head),
             ("resident", lambda c: phase_resident("cuda", launch_counts=c),
-             WAVE_KERNELS, no_head),
+             WAVE_KERNELS, {"row_splice": RESIDENT_WAVES + 1, **no_head}),
             ("temporal_plan",
              lambda c: phase_temporal_plan("cuda", launch_counts=c),
              (), {K6A: 0, **no_head}),
@@ -2480,6 +2548,13 @@ def main() -> int:
             ring_rec["ms"] + s * ring_rec["at_other_shapes"][0]["ms"]
             for s in range(sharded["mesh"]["seq"])]}))
 
+    # a bound under the card's least launch time cannot be reached by
+    # any one launch
+    floor = next(r for r in kernels
+                 if r["name"] == "probe_double")["launch_floor_ms"]
+    for rec in kernels:
+        for row in (rec, *rec.get("at_other_shapes", ())):
+            row["bound_below_launch_floor"] = row["bound_ms"] < floor
     for rec in kernels:
         rec["launches"] = totals.get(rec["name"], 0)
         check(rec["launches"] > 0, f"{rec['name']} not on the path")

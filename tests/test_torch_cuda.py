@@ -77,6 +77,9 @@ from aws_global_accelerator_controller_tpu_torch.ops.cuda_weights import (
     plan_weights_cuda,
 )
 from aws_global_accelerator_controller_tpu_torch.parallel.fleet import (
+    _splice_grids,
+    make_row_splice,
+    pack_splice,
     row_splice,
     row_splice_reference,
 )
@@ -112,6 +115,24 @@ def params(cuda):
 def test_probe_kernel_doubles(cuda):
     x = torch.randn(8, 128, device=cuda)
     assert torch.equal(tdevice.probe_double(x), x * 2)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1024, 4097])
+def test_probe_kernel_doubles_any_length_and_offset(cuda, n):
+    """K1's float4 lanes, its scalar tail past a multiple of 4, and a view
+    one float off a 16-byte boundary (every quad scalar)."""
+    buf = torch.randn(n + 1, device=cuda)
+    for x in (buf[:n], buf[1:]):
+        assert x.is_contiguous()
+        assert torch.equal(tdevice.probe_double(x), x * 2)
+    assert buf[1:].data_ptr() % 16
+
+
+def test_launch_floor_kernel_launches(cuda):
+    before = build.launch_counts()["launch_floor"]
+    tdevice.launch_floor(cuda)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["launch_floor"] == before + 1
 
 
 #: widths of K2's sweep: its quad route (E a multiple of 4 up to 32), its
@@ -514,6 +535,90 @@ def test_splice_kernel_refuses_rows_outside_the_grid(cuda, lin):
     assert not dst.any()
 
 
+def _wave(cuda, widths, S=6, cap=50, K=70, pad=20, seed=0):
+    """Grids [S, cap, W] (W = 0: a plane [S, cap]) on the card, K real rows
+    at distinct positions but the last 3, which repeat the first 3 with
+    equal rows, and ``pad`` pad rows past K that repeat row 0."""
+    rng = np.random.default_rng(seed)
+    shapes = [(S, cap, W) if W else (S, cap) for W in widths]
+    grids = [torch.from_numpy(rng.integers(0, 1 << 30, sh).astype(
+        np.int32)).to(cuda) for sh in shapes]
+    flat = rng.choice(S * cap, K - 3, replace=False)
+    flat = np.concatenate([flat, flat[:3], np.repeat(flat[:1], pad)])
+    blocks = []
+    for sh in shapes:
+        b = rng.integers(0, 1 << 30, (K + pad, *sh[2:])).astype(np.int32)
+        b[K - 3:K] = b[:3]
+        b[K:] = b[0]
+        blocks.append(b)
+    return grids, flat // cap, flat % cap, blocks, K
+
+
+def _plain_wave(grids, ks, kg, blocks):
+    out = []
+    for g, b in zip(grids, blocks):
+        S, cap = g.shape[:2]
+        flat = g.cpu().clone().reshape(S * cap, -1)
+        lin = torch.from_numpy(ks * cap + kg)
+        row_splice_reference(flat, lin, torch.from_numpy(b).reshape(
+            lin.shape[0], -1))
+        out.append(flat.view(g.shape))
+    return out
+
+
+@pytest.mark.parametrize("widths", [tuple(range(1, 9)),
+                                    tuple(range(9, 17)), (17, 0, 4, 4)])
+def test_splice_kernel_splices_many_grids_in_one_launch(cuda, widths):
+    """K4's table at widths 1-17 and a plane, up to 8 grids a launch, the
+    K real rows of K + pad: one launch, the plain version's grids."""
+    grids, ks, kg, blocks, K = _wave(cuda, widths, seed=len(widths))
+    want = _plain_wave(grids, ks, kg, blocks)
+    before = build.launch_counts()["row_splice"]
+    make_row_splice(cuda)(grids, ks[:K], kg[:K], [b[:K] for b in blocks])
+    torch.cuda.synchronize()
+    assert build.launch_counts()["row_splice"] == before + 1
+    for g, w in zip(grids, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("W", [1, 4, 8, 12])
+def test_splice_kernel_takes_rows_off_16_byte_alignment(cuda, W):
+    """Rows one int32 off a 16-byte boundary take the scalar path, the
+    aligned copy of the same rows the vector path: equal grids."""
+    grids, ks, kg, blocks, K = _wave(cuda, (W, W), seed=W)
+    lin, (rows, _) = pack_splice(grids[0].shape[:2], ks[:K], kg[:K],
+                                 [b[:K] for b in blocks], cuda)
+    off = torch.empty(rows.numel() + 1, dtype=torch.int32, device=cuda)
+    view = off[1:].view(rows.shape)
+    view.copy_(rows)
+    assert view.data_ptr() % 16 and rows.data_ptr() % 16 == 0
+    S, cap = grids[0].shape[:2]
+    aligned, scalar = (g.view(S * cap, W) for g in grids)
+    scalar.copy_(aligned)
+    _splice_grids([aligned, scalar], lin, [rows, view])
+    want = _plain_wave(grids[:1], ks[:K], kg[:K], [blocks[0][:K]])[0]
+    assert torch.equal(aligned.cpu().view(want.shape), want)
+    assert torch.equal(scalar, aligned)
+
+
+@pytest.mark.parametrize("axis", ["ks", "kg"])
+def test_splice_kernel_refuses_a_wave_outside_the_grid(cuda, axis):
+    """A position off its own axis, last in the wave: IndexError, no
+    launch, no grid written."""
+    grids, ks, kg, blocks, K = _wave(cuda, (4, 4, 4, 4, 0, 0))
+    ks, kg = ks[:K].copy(), kg[:K].copy()
+    (ks if axis == "ks" else kg)[-1] = grids[0].shape[0 if axis == "ks"
+                                                       else 1]
+    before_grids = [g.clone() for g in grids]
+    before = build.launch_counts()["row_splice"]
+    with pytest.raises(IndexError):
+        make_row_splice(cuda)(grids, ks, kg, [b[:K] for b in blocks])
+    torch.cuda.synchronize()
+    assert build.launch_counts()["row_splice"] == before
+    for g, b in zip(grids, before_grids):
+        assert torch.equal(g, b)
+
+
 def fleet_groups(n, shards, seed):
     rng = np.random.default_rng(seed)
     out = []
@@ -559,7 +664,7 @@ def test_resident_waves_on_card_bitmatch_full_repack(cuda, params):
         fleet.upsert(g)
     planner.plan_wave()
     counts = build.launch_counts()
-    assert counts["row_splice"] == 12 and counts["plan_weights"] == 2
+    assert counts["row_splice"] == 2 and counts["plan_weights"] == 2
     assert not planner.plan_wave().device_call
     assert build.launch_counts() == counts
     assert planner.verify_full_repack()["match"] is True

@@ -68,6 +68,12 @@ def test_every_k3_fault_is_planted_in_the_mlp():
                   "plan_group_from_first_tile_only"}
 
 
+def test_every_k4_fault_is_planted_in_the_row_splice():
+    k4 = {name for name, (src, _, _) in FAULTS.items()
+          if src.endswith("csrc/row_splice.cu")}
+    assert k4 == {"vector_path_drops_last_lane", "table_skips_last_grid"}
+
+
 def _score_head_faults():
     return {name for name, (src, _, _) in FAULTS.items()
             if src.endswith("csrc/score_head.cu")}

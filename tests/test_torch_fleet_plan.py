@@ -22,10 +22,16 @@ from aws_global_accelerator_controller_tpu.parallel.fleet import (
     make_row_splice as jax_make_row_splice,
 )
 from aws_global_accelerator_controller_tpu.parallel.fleet_plan import (
+    ResidentFleetPlanner as JaxResidentFleetPlanner,
+)
+from aws_global_accelerator_controller_tpu.parallel.fleet_plan import (
     WholeFleetPlanner as JaxWholeFleetPlanner,
 )
 from aws_global_accelerator_controller_tpu.reconcile import (
     columnar as jcol,
+)
+from aws_global_accelerator_controller_tpu.reconcile.resident import (
+    ResidentFleet as JaxResidentFleet,
 )
 from aws_global_accelerator_controller_tpu_torch import parity
 from aws_global_accelerator_controller_tpu_torch.models.convert import (
@@ -34,12 +40,15 @@ from aws_global_accelerator_controller_tpu_torch.models.convert import (
 from aws_global_accelerator_controller_tpu_torch.parallel.distributed \
     import World
 from aws_global_accelerator_controller_tpu_torch.parallel.fleet import (
+    _splice_grids,
     make_row_splice,
+    pack_splice,
     row_splice,
 )
 from aws_global_accelerator_controller_tpu_torch.parallel.fleet_plan import (
     STAT_ADDS,
     STAT_REMOVES,
+    ResidentFleetPlanner,
     WholeFleetPlanner,
     make_fleet_pass,
 )
@@ -48,6 +57,9 @@ from aws_global_accelerator_controller_tpu_torch.parallel.mesh import (
 )
 from aws_global_accelerator_controller_tpu_torch.reconcile import (
     columnar as tcol,
+)
+from aws_global_accelerator_controller_tpu_torch.reconcile.resident import (
+    ResidentFleet,
 )
 
 CAP = 8
@@ -206,8 +218,9 @@ def test_row_splice_matches_jax_scatter():
             want = np.asarray(jsplice(jnp.asarray(dst), jnp.asarray(ks),
                                       jnp.asarray(kg), jnp.asarray(src)))
             t = torch.from_numpy(dst.copy())
-            got = splice(t, ks, kg, torch.from_numpy(src))
-            assert got is t                       # in place
+            ptr = t.data_ptr()
+            got = splice((t,), ks, kg, (src,))
+            assert got[0] is t and t.data_ptr() == ptr     # in place
             assert np.array_equal(t.numpy(), want)
 
 
@@ -217,7 +230,7 @@ def test_row_splice_checks_bounds_and_shapes():
     rows = torch.ones((1, 4), dtype=torch.int32)
     for ks, kg in (([2], [0]), ([0], [3]), ([-1], [0])):
         with pytest.raises(IndexError):
-            splice(grid, np.array(ks), np.array(kg), rows)
+            splice((grid,), np.array(ks), np.array(kg), (rows.numpy(),))
     for lin in ([6], [-1], [0, 6]):
         with pytest.raises(IndexError):
             row_splice(grid.view(6, 4), torch.tensor(lin, dtype=torch.int32),
@@ -226,3 +239,179 @@ def test_row_splice_checks_bounds_and_shapes():
     with pytest.raises(ValueError):
         row_splice(grid.view(6, 4), torch.zeros(2, dtype=torch.int32),
                    rows)
+
+
+#: a wave's grids in the batched splice: endpoint grids of widths 16, 8,
+#: 4, 3 and 1, and one per-group plane
+WAVE_SHAPES = ((16,), (8,), (4,), (3,), (1,), ())
+
+
+def wave_case(seed, S=5, cap=7, K=9, dup=2, pad=4):
+    """Six grids, K real rows (the last ``dup`` repeating the first ``dup``
+    at the same positions, with equal rows) and ``pad`` pad rows past K
+    that repeat row 0, as the planner's power-of-two bucket did."""
+    rng = np.random.default_rng(seed)
+    grids = [rng.integers(0, 1000, (S, cap, *w)).astype(np.int32)
+             for w in WAVE_SHAPES]
+    flat = rng.choice(S * cap, size=K - dup, replace=False)
+    flat = np.concatenate([flat, flat[:dup], np.repeat(flat[:1], pad)])
+    blocks = []
+    for w in WAVE_SHAPES:
+        b = rng.integers(0, 1000, (K + pad, *w)).astype(np.int32)
+        b[K - dup:K] = b[:dup]
+        b[K:] = b[0]
+        blocks.append(b)
+    return grids, flat // cap, flat % cap, blocks, K
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_batched_splice_of_six_grids_matches_jax_scatter(seed):
+    """One call splices the K real rows into all six grids; the JAX
+    package's scatter of every row, pads included, gives the same grids."""
+    jsplice = jax_make_row_splice(RUNG_REFERENCE)
+    splice = make_row_splice(torch.device("cpu"))
+    grids, ks, kg, blocks, K = wave_case(seed)
+    dsts = tuple(torch.from_numpy(g.copy()) for g in grids)
+    assert splice(dsts, ks[:K], kg[:K], [b[:K] for b in blocks]) is dsts
+    for g, d, b in zip(grids, dsts, blocks):
+        want = jsplice(jnp.asarray(g), jnp.asarray(ks), jnp.asarray(kg),
+                       jnp.asarray(b))
+        assert np.array_equal(d.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("at", ["first", "middle", "last"])
+@pytest.mark.parametrize("axis,value", [("ks", 5), ("ks", -1), ("kg", 7),
+                                        ("kg", -1)])
+def test_batched_splice_refuses_positions_outside_the_grid(at, axis, value):
+    """A shard or slot out of its own axis anywhere in the wave raises
+    before any grid is written (a kg of cap would still land inside the
+    flat grid, in the next shard's first slot)."""
+    splice = make_row_splice(torch.device("cpu"))
+    grids, ks, kg, blocks, K = wave_case(11)
+    ks, kg = ks[:K].copy(), kg[:K].copy()
+    (ks if axis == "ks" else kg)[{"first": 0, "middle": K // 2,
+                                  "last": K - 1}[at]] = value
+    dsts = tuple(torch.from_numpy(g.copy()) for g in grids)
+    with pytest.raises(IndexError):
+        splice(dsts, ks, kg, [b[:K] for b in blocks])
+    for g, d in zip(grids, dsts):
+        assert np.array_equal(d.numpy(), g)
+
+
+def test_pack_splice_is_one_buffer_of_aligned_segments():
+    """lin and the six row blocks are views of one int32 buffer, each
+    starting on a 16-byte boundary of it, holding the real rows only."""
+    grids, ks, kg, blocks, K = wave_case(5)
+    lin, rows = pack_splice((5, 7), ks[:K], kg[:K], [b[:K] for b in blocks],
+                            torch.device("cpu"))
+    base = lin.untyped_storage().data_ptr()
+    assert lin.dtype == torch.int32 and lin.tolist() == list(
+        ks[:K] * 7 + kg[:K])
+    for r, b in zip(rows, blocks):
+        assert r.untyped_storage().data_ptr() == base
+        assert r.storage_offset() % 4 == 0 and r.is_contiguous()
+        assert np.array_equal(r.numpy(), b[:K].reshape(K, -1))
+    with pytest.raises(ValueError):
+        pack_splice((5, 7), ks[:K], kg[:K], [blocks[0][:K - 1]],
+                    torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.float32, np.uint32])
+def test_pack_splice_refuses_blocks_that_are_not_int32(dtype):
+    """A block of another dtype raises before the copy, as the one-grid
+    splice refuses rows that are not int32: nothing is cast, so an int64
+    past int32 cannot wrap and a float cannot be truncated."""
+    grids, ks, kg, blocks, K = wave_case(7)
+    bad = [b[:K] for b in blocks]
+    bad[-1] = bad[-1].astype(dtype) + (1 << 31 if dtype == np.int64 else 0)
+    with pytest.raises(ValueError, match="int32"):
+        pack_splice((5, 7), ks[:K], kg[:K], bad, torch.device("cpu"))
+    dsts = tuple(torch.from_numpy(g.copy()) for g in grids)
+    with pytest.raises(ValueError, match="int32"):
+        make_row_splice(torch.device("cpu"))(dsts, ks[:K], kg[:K], bad)
+    for g, d in zip(grids, dsts):
+        assert np.array_equal(d.numpy(), g)
+
+
+def test_splice_grids_checks_its_table():
+    grid = torch.zeros((6, 4), dtype=torch.int32)
+    lin = torch.tensor([1, 4], dtype=torch.int32)
+    rows = torch.ones((2, 4), dtype=torch.int32)
+    _splice_grids([grid], lin, [rows])
+    assert grid[[1, 4]].eq(1).all() and grid.sum() == 8
+    for dsts, blocks in (([], []), ([grid], []), ([grid] * 9, [rows] * 9),
+                         ([grid], [rows[:1]]), ([grid], [rows[:, :3]])):
+        with pytest.raises(ValueError):
+            _splice_grids(dsts, lin, blocks)
+
+
+@pytest.mark.parametrize("churn", [1, 7, 9, 33])
+def test_resident_waves_on_cpu_match_whole_fleet_planner(planners, churn):
+    """After a wave of ``churn`` changed groups (a count that is not a
+    power of two but 1, so the splice takes real rows only), the resident
+    plan is the whole-fleet planner's plan of the same groups, position by
+    position, weights and masks alike.  A changed group keeps its weight
+    mode and desired endpoints (the sweep's churn: drift, weights,
+    features, a shard move); a group that leaves the model mode keeps a
+    stale cache in both packages (ROADMAP.md, C5)."""
+    _, oracle = planners
+    rng = np.random.default_rng(churn)
+    fleet = ResidentFleet(shards=3, endpoints_cap=CAP, feature_dim=F,
+                          groups_per_shard=16)
+    planner = ResidentFleetPlanner(fleet, params=oracle.params,
+                                   device="cpu")
+    specs = [group_spec(rng, i, 3) for i in range(40)]
+    for spec in specs:
+        fleet.upsert(tcol.GroupState(**spec))
+    planner.plan_wave()
+    for i in rng.choice(40, churn, replace=False):
+        other = group_spec(rng, int(i), 3)
+        spec = dict(specs[i], fingerprint=1000 + int(i),
+                    shard=other["shard"], observed=other["observed"],
+                    observed_weights=other["observed_weights"])
+        if spec["features"] is not None:
+            spec["features"] = rng.standard_normal(
+                spec["features"].shape).astype(np.float32)
+        fleet.upsert(tcol.GroupState(**spec))
+    wave = planner.plan_wave()
+    assert wave.device_call and wave.dirty_groups >= churn
+    want = oracle.plan_groups(fleet.snapshot_groups(), endpoints_cap=CAP,
+                              shards=3)
+    positions = fleet.occupied_positions()
+    assert len(positions) == len(want.fleet.locations) == 40
+    for (s, gi), (s2, gp) in zip(positions, want.fleet.locations):
+        assert s == s2
+        for got, ref in ((planner.planned_w, want.desired_w),
+                         (planner.to_add, want.to_add),
+                         (planner.to_remove, want.to_remove),
+                         (planner.to_reweight, want.to_reweight)):
+            assert np.array_equal(got[s, gi], ref[s2, gp]), (s, gi)
+
+
+def test_a_group_leaving_the_model_mode_keeps_its_cache_as_in_the_reference(
+        reference_rung):
+    """ROADMAP.md, C5, in both packages: a model-planned group upserted
+    with no target keeps its cached weights in the resident plan, where
+    the full repack plans zeros.  The port keeps the reference's
+    behaviour; this test fails once either package changes it."""
+    got = {}
+    for name, fleet_cls, planner_cls, state, kw in (
+            ("torch", ResidentFleet, ResidentFleetPlanner, tcol.GroupState,
+             {"device": "cpu"}),
+            ("jax", JaxResidentFleet, JaxResidentFleetPlanner,
+             jcol.GroupState, {})):
+        fleet = fleet_cls(shards=1, endpoints_cap=2, feature_dim=F,
+                          groups_per_shard=1)
+        planner = planner_cls(fleet, seed=0, **kw)
+        ids = [arn(0), arn(1)]
+        for version, model in ((1, True), (2, False)):
+            fleet.upsert(state(
+                key="default/b0", group_arn="eg-0", desired=ids,
+                observed=ids, observed_weights=[1, 2],
+                features=np.ones((2, F), np.float32) if model else None,
+                model_planned=model, fingerprint=version))
+            planner.plan_wave()
+        verdict = planner.verify_full_repack()
+        assert verdict["match"] is False and verdict["mismatches"] == 1
+        got[name] = planner.planned_w[0, 0].tolist()
+    assert got["torch"] == got["jax"] and sum(got["torch"]) > 0
